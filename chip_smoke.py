@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script exits non-zero and prints no
+result line):
+
+1. card   — the card's name and power limit from nvidia-smi.
+2. build  — compile the sm_90a kernels from `src/repro_torch/csrc`.
+3. serve  — internlm2-1.8b at full width (24 layers, d=2048, F=8192,
+            vocab 92544, bf16) with random weights from a seeded
+            torch.Generator, DSG serving on (gamma 0.5, refresh 8), paged
+            KV (page 16), 4 slots, max_seq 512, prompt bucket 256, serving
+            8 mixed-length requests.  The kernels' launch counters are set
+            to 0 just before the run and read just after; each kernel must
+            have launched once per layer per decode step (paged decode,
+            group-CSR FFN) or per admission and refresh step (DRS search).
+4. profile — a short full-width serve run under torch.profiler: the
+            device's busy share and device time by kernel.
+5. check  — the smoke model's greedy streams on the card (kernels) equal
+            those on the CPU (plain versions).
+6. kernels — each kernel against its plain PyTorch version on inputs
+            captured from the serve run, in bf16 and in f32; CUDA-event
+            times (median of 30) of the kernel, the plain version and, where
+            one PyTorch call computes the same function, that call; and the
+            least time the card could take (bytes at 3.35 TB/s or flops at
+            989 TFLOP/s, whichever is larger).
+
+The last line is {"ok": true, "device": {...}}.  It needs no network and
+imports nothing of JAX or of the `repro` package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+ARCH = "internlm2-1.8b"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+CAPTURE_STEP = 12                  # decode step whose layer-0 call is kept
+TIMING_REPS = 30
+# (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
+# for values near zero; in f32, summation order
+TOL = {"torch.bfloat16": (8e-3, 4e-3), "torch.float32": (1e-4, 1e-4)}
+
+
+def fail(msg: str):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Capture:
+    """Wraps an `ops` entry point: passes every call through and keeps a
+    clone of the arguments of call number `at`."""
+
+    def __init__(self, fn, at: int):
+        self.fn, self.at, self.n, self.args, self.kwargs = fn, at, 0, None, None
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        if self.n == self.at:
+            self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args)
+            self.kwargs = dict(kwargs)
+        self.n += 1
+        return self.fn(*args, **kwargs)
+
+
+def time_ms(fn) -> float:
+    """Median CUDA-event time of one call, over TIMING_REPS calls after a
+    warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(TIMING_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def to_dtype(args, dtype):
+    import torch
+    return tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_cost(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
+               window=0, num_pages=0):
+    """Bytes and flops the paged step needs on these inputs: every live
+    page read once (mirrored lanes share theirs), the new rows written
+    once, 4 * H * D flops per attended position."""
+    b, h, d = q.shape
+    ps, kv = k_pages.shape[1], k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    walk = min(num_pages, max_pages) if num_pages else max_pages
+    pt, p = page_table.cpu().tolist(), pos.cpu().tolist()
+    pages, rows, positions = set(), set(), 0
+    for lane in range(b):
+        lp = p[lane] // ps
+        pages.update(pt[lane][:min(lp, walk - 1) + 1])
+        if lp < walk:
+            rows.add((pt[lane][lp], p[lane] % ps))
+        lo = p[lane] - window + 1 if window > 0 else 0
+        positions += min(p[lane], walk * ps - 1) - max(lo, 0) + 1
+    el = q.element_size()
+    nbytes = (el * (2 * q.numel() + k_new.numel() + v_new.numel()
+                    + 2 * kv * d * (len(pages) * ps + len(rows)))
+              + 4 * (page_table.numel() + pos.numel()))
+    return nbytes, 4.0 * h * d * positions
+
+
+def csr_cost(x, wg, wu, wd, idx, counts, *, block=128):
+    """Bytes and flops of the CSR FFN step: the union of the lanes' active
+    groups' weight blocks read once, 6 * d * block flops per lane-group."""
+    b, d = x.shape
+    ix, cn = idx.cpu().tolist(), counts.cpu().tolist()
+    union = {g for lane in range(b) for g in ix[lane][:cn[lane]]}
+    el = x.element_size()
+    nbytes = el * (2 * x.numel() + 3 * d * block * len(union)) \
+        + 4 * (idx.numel() + counts.numel())
+    return nbytes, 6.0 * d * block * sum(cn)
+
+
+def project_cost(x, r):
+    m, d = x.shape
+    k = r.shape[0]
+    return x.element_size() * (m * d + k * d + m * k), 2.0 * m * d * k
+
+
+def scores_cost(fx, fw, block=128):
+    m, k = fx.shape
+    f = fw.shape[1]
+    return (fx.element_size() * (m * k + k * f) + 4 * m * (f // block),
+            2.0 * m * k * f)
+
+
+def check_kernel(name, kernel, plain, cap, cost, library=None):
+    """Hold `kernel` against `plain` on the captured inputs in bf16 and
+    f32 and time both (and `library`) on the bf16 inputs."""
+    import torch
+    row = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = to_dtype(cap.args, dtype)
+
+        def call(fn, args=args):
+            fresh = tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args)       # paged pools update in place
+            return fn(*fresh, **cap.kwargs)
+
+        got, want = call(kernel), call(plain)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rtol, atol = TOL[str(dtype)]
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        if not all(torch.isfinite(g.float()).all() for g in got):
+            fail(f"{name}: non-finite output in {dtype}")
+        for g, w in zip(got, want):
+            if not torch.allclose(g.float(), w.float(), rtol=rtol, atol=atol):
+                fail(f"{name}: kernel differs from its plain version in "
+                     f"{dtype} (max abs err {err}, rtol {rtol}, atol {atol})")
+        key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+        row[key] = err
+        if dtype == torch.bfloat16:
+            row["shapes"] = [list(a.shape) for a in cap.args
+                             if torch.is_tensor(a)]
+            row["tol_bf16"] = [rtol, atol]
+            row["ms"] = time_ms(lambda: kernel(*args, **cap.kwargs))
+            row["plain_ms"] = time_ms(lambda: plain(*args, **cap.kwargs))
+            row["library_ms"] = (time_ms(lambda: library(*args))
+                                 if library is not None else None)
+            row["bound_ms"], row["bound_by"] = bound(
+                *cost(*args, **cap.kwargs), dtype)
+        else:
+            row["tol_f32"] = [rtol, atol]
+    return row
+
+
+def profile_serve(cfg, model, dsg, eng_kw):
+    """A short full-width serve run under torch.profiler: the device's busy
+    time (the union of its kernel and copy intervals) over the window from
+    its first to its last activity, and device time by kernel name.
+    Returns None where the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.workload import mixed_requests, run_workload
+    reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 2, prompt_range=(64, 128),
+                          max_new_range=(24, 24))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = run_workload(cfg, model, dsg, reqs, **eng_kw)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end, by_name = 0.0, spans[0][0], {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e - s, n + 1)
+    window = end - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "busy_share": busy / window, "wall_s": stats["wall_s"],
+            "steps": stats["steps"],
+            "by_kernel": [{"name": n[:80], "ms": t / 1e3, "count": c}
+                          for n, (t, c) in top]}
+
+
+def smoke_streams(device, dsg_serving):
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import mixed_requests
+    cfg = configs.get_smoke_config(ARCH)
+    cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+    gen = torch.Generator().manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen)
+    dsg = api.init_dsg(model, cfg, generator=gen)
+    model = model.to(device)
+    dsg = {k: v.to(device) for k, v in dsg.items()}
+    eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
+                        prompt_bucket=32, page_size=8,
+                        dsg_serving=dsg_serving)
+    for r in mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
+                            max_new_range=(3, 9)):
+        eng.submit(r)
+    return {u: r.output for u, r in eng.run(400).items()}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import (cuda_lib, drs_search, dsg_ffn, ops,
+                                     paged_attention)
+    from repro_torch.models import api
+    from repro_torch.serving.dsg_runtime import DSGServingConfig
+    from repro_torch.serving.workload import mixed_requests, run_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+
+    # 2. build
+    lib, build_s = cuda_lib.build()
+    cuda_lib.library()
+    print(f"[build] {lib.name} in {build_s:.2f}s", flush=True)
+
+    # 3. serve at full width
+    cfg = configs.get_config(ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"F={cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params "
+          f"in {cfg.dtype}, init {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    eng_kw = dict(n_slots=4, max_seq=512, prompt_bucket=256, page_size=16,
+                  dsg_serving=DSGServingConfig(refresh_interval=8))
+    # one-time CUDA/cuBLAS set-up outside the measured run
+    run_workload(cfg, model, dsg,
+                 mixed_requests(cfg.vocab, 2, seed=SEED + 1,
+                                prompt_range=(8, 16), max_new_range=(4, 4)),
+                 **eng_kw)
+    kernels = {"paged_decode": (paged_attention.paged_decode,
+                                "paged_decode_attention"),
+               "dsg_ffn_csr": (dsg_ffn.dsg_ffn_csr, "dsg_ffn_csr"),
+               "drs_project": (drs_search.drs_project, "drs_project"),
+               "drs_scores": (drs_search.drs_scores, "drs_scores")}
+    captures = {}
+    for name, (_, op) in kernels.items():
+        at = cfg.n_layers * CAPTURE_STEP if name in (
+            "paged_decode", "dsg_ffn_csr") else 0
+        captures[name] = Capture(getattr(ops, op), at)
+        setattr(ops, op, captures[name])
+    try:
+        for wrapper, _ in kernels.values():
+            wrapper.launches = 0
+        stats = run_workload(cfg, model, dsg,
+                             mixed_requests(cfg.vocab, 8, seed=SEED),
+                             **eng_kw)
+        launches = {n: w.launches for n, (w, _) in kernels.items()}
+    finally:
+        for name, (_, op) in kernels.items():
+            setattr(ops, op, captures[name].fn)
+    print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
+          f"in {stats['wall_s']:.3f}s = {stats['tok_per_s']:.2f} tok/s "
+          f"(decode {stats['decode_tok_per_s']:.2f} tok/s); latency p50 "
+          f"{stats['p50_s']:.3f}s p95 {stats['p95_s']:.3f}s; "
+          f"{stats['steps']} decode steps, {stats['admissions']} "
+          f"admissions, {stats['refresh_steps']} refresh steps; KV pool "
+          f"{stats['cache_bytes'] / 1e9:.3f} GB; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print("[serve] stats " + json.dumps(stats), flush=True)
+    if stats["requests"] != 8 or stats["ok_requests"] != 8:
+        fail(f"not every request finished ok: {stats}")
+    want = {"paged_decode": cfg.n_layers * stats["steps"],
+            "dsg_ffn_csr": cfg.n_layers * stats["steps"],
+            "drs_project": cfg.n_layers * (stats["admissions"]
+                                           + stats["refresh_steps"]),
+            "drs_scores": cfg.n_layers * (stats["admissions"]
+                                          + stats["refresh_steps"])}
+    print(f"[serve] launches {launches} (expected {want})", flush=True)
+    for name in kernels:
+        if launches[name] != want[name] or not launches[name]:
+            fail(f"{name} launched {launches[name]} times on the serve "
+                 f"path, expected {want[name]}")
+        if captures[name].args is None:
+            fail(f"no call of {name} was captured")
+
+    # 4. where the device time goes in a short serve run
+    prof = profile_serve(cfg, model, dsg, eng_kw)
+    if prof is None:
+        print("[profile] device time not measured: the profiler recorded "
+              "no device activity", flush=True)
+    else:
+        share = 100 * prof["busy_share"]
+        print(f"[profile] device busy {prof['busy_ms']:.3f} ms of a "
+              f"{prof['window_ms']:.3f} ms window ({share:.1f}%), "
+              f"{prof['steps']} decode steps, wall "
+              f"{prof['wall_s']:.3f} s under the profiler", flush=True)
+        print("[profile] " + json.dumps(prof), flush=True)
+
+    # 5. smoke-width streams: kernels on the card vs plain versions on CPU
+    for scfg in (None, DSGServingConfig(refresh_interval=2)):
+        on_card = smoke_streams(dev, scfg)
+        if on_card != smoke_streams(torch.device("cpu"), scfg) \
+                or len(on_card) != 6:
+            fail(f"smoke streams on the card differ from the CPU "
+                 f"(dsg_serving={scfg})")
+    print("[check] smoke-width greedy streams on the card equal the CPU's "
+          "(DSG serving off and on)", flush=True)
+
+    # 6. kernels against their plain versions
+    specs = [
+        ("paged_decode", paged_attention.paged_decode,
+         paged_attention.paged_decode_plain, paged_cost, None,
+         "src/repro_torch/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:129"),
+        ("dsg_ffn_csr", dsg_ffn.dsg_ffn_csr, dsg_ffn.dsg_ffn_csr_plain,
+         csr_cost, None, "src/repro_torch/csrc/dsg_ffn.cu",
+         "src/repro/kernels/dsg_ffn.py:120"),
+        ("drs_project", drs_search.drs_project, drs_search.drs_project_plain,
+         project_cost, lambda x, r: torch.matmul(x, r.t()),
+         "src/repro_torch/csrc/drs_search.cu",
+         "src/repro/kernels/drs_search.py:29"),
+        ("drs_scores", drs_search.drs_scores, drs_search.drs_scores_plain,
+         scores_cost, None, "src/repro_torch/csrc/drs_search.cu",
+         "src/repro/kernels/drs_search.py:56"),
+    ]
+    rows = []
+    for name, kernel, plain, cost, library, source, replaces in specs:
+        row = check_kernel(name, kernel, plain, captures[name], cost,
+                           library)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     **row})
+        print(f"[kernel] {name}: {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}), max abs err bf16 {row['max_abs_err']:.3g}"
+              f" f32 {row['max_abs_err_f32']:.3g}", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

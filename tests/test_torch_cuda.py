@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the `cuda` marker and needs a CUDA device; it
+skips without one (the check runs inside the `cuda` fixture, never at
+import).  This file imports neither JAX nor `repro`, so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 kernels sum in another order than the plain versions
+(TF32 is off), so they agree to 1e-4.  In bf16 both round an f32 result
+once, so they differ by at most one bf16 ulp of the value (2^-7 of it,
+within rtol 8e-3), plus atol 4e-3 for values near zero.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import (drs_search, dsg_ffn, ops,  # noqa: E402
+                                 paged_attention)
+from repro_torch.models import api  # noqa: E402
+from repro_torch.serving.dsg_runtime import DSGServingConfig  # noqa: E402
+from repro_torch.serving.scheduler import ServingEngine  # noqa: E402
+from repro_torch.serving.workload import mixed_requests  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=8e-3, atol=4e-3)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dtype, dev, scale=1.0):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            * scale).to(dtype).to(dev)
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _paged_inputs(rng, b, h, kv, d, ps, max_pages, pos, dtype, dev,
+                  mirror=()):
+    """Pools with page 0 as scratch and distinct live pages per lane;
+    lanes in `mirror` copy lane 0's page table, position and new K/V (the
+    serving engine's free-lane mirroring)."""
+    n_pages = 1 + b * max_pages
+    q = _rand(rng, (b, h, d), dtype, dev)
+    k_new = _rand(rng, (b, kv, d), dtype, dev)
+    v_new = _rand(rng, (b, kv, d), dtype, dev)
+    k_pages = _rand(rng, (n_pages, ps, kv, d), dtype, dev)
+    v_pages = _rand(rng, (n_pages, ps, kv, d), dtype, dev)
+    table = np.zeros((b, max_pages), np.int32)
+    nxt = 1
+    for lane in range(b):
+        for j in range(pos[lane] // ps + 1):
+            table[lane, j] = nxt
+            nxt += 1
+    pos = np.asarray(pos, np.int32)
+    for lane in mirror:
+        table[lane], pos[lane] = table[0], pos[0]
+        k_new[lane], v_new[lane] = k_new[0], v_new[0]
+    return (q, k_new, v_new, k_pages, v_pages,
+            torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev))
+
+
+def _run_paged(fn, args, **kw):
+    q, kn, vn, kp, vp, pt, pos = args
+    kp, vp = kp.clone(), vp.clone()
+    return fn(q, kn, vn, kp, vp, pt, pos, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 16), (2, 2, 16), (16, 8, 128)])
+def test_paged_decode_on_card(cuda, dtype, ps, h, kv, d):
+    pos = [0, ps - 1, ps, 2 * ps + 3, 5 * ps - 1]
+    args = _paged_inputs(np.random.default_rng(0), len(pos), h, kv, d, ps,
+                         6, pos, dtype, cuda)
+    o, kp, vp = _run_paged(paged_attention.paged_decode, args)
+    ow, kw, vw = _run_paged(paged_attention.paged_decode_plain, args)
+    _close(o, ow, dtype)
+    assert torch.equal(kp, kw) and torch.equal(vp, vw)
+
+
+@pytest.mark.parametrize("window,num_pages", [(10, 0), (0, 6), (0, 2)])
+def test_paged_decode_window_walk_and_mirrors_on_card(cuda, window,
+                                                      num_pages):
+    """Sliding window, a bounded walk, an undersized walk (lanes past it
+    write nothing) and mirrored lanes writing duplicate rows."""
+    args = _paged_inputs(np.random.default_rng(1), 4, 4, 2, 16, 8, 8,
+                         [5, 17, 40, 9], torch.float32, cuda, mirror=(3,))
+    kw = dict(window=window, num_pages=num_pages)
+    o, kp, vp = _run_paged(paged_attention.paged_decode, args, **kw)
+    ow, kw_, vw = _run_paged(paged_attention.paged_decode_plain, args, **kw)
+    _close(o, ow, torch.float32)
+    assert torch.equal(kp, kw_) and torch.equal(vp, vw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,f,block,k", [(3, 16, 64, 16, 2),
+                                           (4, 64, 256, 64, 4),
+                                           (4, 2048, 8192, 128, 32)])
+def test_dsg_ffn_csr_on_card(cuda, dtype, b, d, f, block, k):
+    rng = np.random.default_rng(2)
+    g = f // block
+    x = _rand(rng, (b, d), dtype, cuda)
+    wg = _rand(rng, (d, f), dtype, cuda, 1 / math.sqrt(d))
+    wu = _rand(rng, (d, f), dtype, cuda, 1 / math.sqrt(d))
+    wd = _rand(rng, (f, d), dtype, cuda, 1 / math.sqrt(f))
+    idx = np.zeros((b, k), np.int32)
+    counts = rng.integers(1, k + 1, b).astype(np.int32)
+    counts[0] = k
+    for lane in range(b):
+        idx[lane, :counts[lane]] = np.sort(rng.choice(g, counts[lane],
+                                                      replace=False))
+        idx[lane, counts[lane]:] = rng.integers(0, g, k - counts[lane])
+    idx_t, cnt_t = (torch.from_numpy(a).to(cuda) for a in (idx, counts))
+    got = dsg_ffn.dsg_ffn_csr(x, wg, wu, wd, idx_t, cnt_t, block=block)
+    want = dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx_t, cnt_t,
+                                     block=block)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,k", [(64, 128, 64), (4, 2048, 256),
+                                   (37, 320, 128), (256, 2048, 256)])
+def test_drs_project_on_card(cuda, dtype, m, d, k):
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (m, d), dtype, cuda)
+    r = _rand(rng, (k, d), dtype, cuda, 1 / math.sqrt(k))
+    _close(drs_search.drs_project(x, r), drs_search.drs_project_plain(x, r),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,f,block", [(64, 64, 256, 32), (4, 256, 8192, 128),
+                                         (37, 128, 512, 64),
+                                         (256, 256, 8192, 128)])
+def test_drs_scores_on_card(cuda, dtype, m, k, f, block):
+    rng = np.random.default_rng(4)
+    fx = _rand(rng, (m, k), dtype, cuda)
+    fw = _rand(rng, (k, f), dtype, cuda)
+    got = drs_search.drs_scores(fx, fw, block=block)
+    want = drs_search.drs_scores_plain(fx, fw, block=block)
+    # both sum exact products of the same inputs in f32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_ops_launch_kernels_on_card(cuda):
+    """CUDA tensors go through the kernels: each call adds one launch."""
+    rng = np.random.default_rng(5)
+    x = _rand(rng, (4, 64), torch.float32, cuda)
+    r = _rand(rng, (64, 64), torch.float32, cuda)
+    before = drs_search.drs_project.launches
+    ops.drs_project(x, r)
+    assert drs_search.drs_project.launches == before + 1
+
+
+def _smoke_streams(device, dsg_serving):
+    cfg = configs.get_smoke_config("internlm2-1.8b")
+    cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+    gen = torch.Generator().manual_seed(0)
+    model = api.init_model(cfg, generator=gen)
+    dsg = api.init_dsg(model, cfg, generator=gen)
+    model = model.to(device)
+    dsg = {k: v.to(device) for k, v in dsg.items()}
+    eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
+                        prompt_bucket=32, page_size=8,
+                        dsg_serving=dsg_serving)
+    for r in mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
+                            max_new_range=(3, 9)):
+        eng.submit(r)
+    return {u: r.output for u, r in eng.run(400).items()}
+
+
+@pytest.mark.parametrize("dsg_serving", [None, DSGServingConfig(2)])
+def test_engine_streams_card_match_cpu_on_card(cuda, dsg_serving):
+    """The smoke engine in f32 on the card (kernels) and on the CPU (plain
+    versions) emits the same greedy streams."""
+    assert (_smoke_streams(cuda, dsg_serving)
+            == _smoke_streams(torch.device("cpu"), dsg_serving))
