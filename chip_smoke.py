@@ -26,6 +26,20 @@ result line):
             one PyTorch call computes the same function, that call; and the
             least time the card could take (bytes at 3.35 TB/s or flops at
             989 TFLOP/s, whichever is larger).
+7. dsg_ffn — the tile-masked DSG FFN through `ops.dsg_ffn_full` (DRS
+            project -> scores -> per-row top-k mask -> tile-masked FFN) on
+            layer 0's FFN input of one 256-token prompt with layer 0's
+            weights and DRS state (gamma 0.5, block 128, bm = bf = 128):
+            each of the three kernels launches once; the composition, the
+            FFN kernel with the per-token, the batch-shared (row 0 for every
+            row) and an all-zero mask, and the tile-skip fractions of the
+            first two.
+8. flash  — `ops.flash_attention` on layer 0's q/k/v after RoPE (kv heads
+            repeated to 16, folded to (16, S, D)): (a) a 256-token prompt,
+            S = T = 256, causal; (b) the last 256 queries of a 2048-token
+            prompt against all 2048 keys, causal with offset 1792.  Held
+            against the plain version and timed beside
+            torch.nn.functional.scaled_dot_product_attention.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -97,10 +111,12 @@ def time_ms(fn) -> float:
     return times[len(times) // 2]
 
 
-def to_dtype(args, dtype):
+def to_dtype(args, dtype, keep=()):
+    """Cast the floating tensors of `args` to dtype, except positions in
+    `keep` (masks stay f32)."""
     import torch
     return tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
-                 else a for a in args)
+                 and i not in keep else a for i, a in enumerate(args))
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -160,13 +176,41 @@ def scores_cost(fx, fw, block=128):
             2.0 * m * k * f)
 
 
-def check_kernel(name, kernel, plain, cap, cost, library=None):
+def dsg_tile_cost(x, wg, wu, wd, token_mask, *, block=128, bm=128, bf=128):
+    """Bytes and flops of the tile-masked FFN: x and out once, the mask,
+    3 * d * bf weight elements for each column block live in any row tile,
+    6 * d * bm * bf flops per live (row tile, column block) cell."""
+    m, d = x.shape
+    f = wg.shape[1]
+    tile = token_mask.reshape(m // bm, bm, f // bf, bf // block).amax(
+        dim=(1, 3)) > 0
+    nbytes = (x.element_size() * (2 * m * d
+                                  + 3 * d * bf * int(tile.any(dim=0).sum()))
+              + token_mask.element_size() * token_mask.numel())
+    return nbytes, 6.0 * d * bm * bf * int(tile.sum())
+
+
+def flash_cost(q, k, v, *, causal=True):
+    """Bytes and flops of flash attention: q, k, v and o once, 4 * D flops
+    per (query, key) pair that the causal rule leaves."""
+    import torch
+    bh, s, d = q.shape
+    t = k.shape[1]
+    pairs = s * t
+    if causal:
+        pairs = int(torch.ones(s, t, dtype=torch.bool).tril(t - s).sum())
+    return (q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            4.0 * d * bh * pairs)
+
+
+def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
     """Hold `kernel` against `plain` on the captured inputs in bf16 and
-    f32 and time both (and `library`) on the bf16 inputs."""
+    f32 and time both (and `library`) on the bf16 inputs; the args at
+    positions `keep` stay in their dtype."""
     import torch
     row = {}
     for dtype in (torch.bfloat16, torch.float32):
-        args = to_dtype(cap.args, dtype)
+        args = to_dtype(cap.args, dtype, keep)
 
         def call(fn, args=args):
             fresh = tuple(a.clone() if torch.is_tensor(a) else a
@@ -254,6 +298,175 @@ def smoke_streams(device, dsg_serving):
                             max_new_range=(3, 9)):
         eng.submit(r)
     return {u: r.output for u, r in eng.run(400).items()}
+
+
+def capture_layer0(cfg, model, dsg, tokens):
+    """One full-width forward over `tokens` (1, S): layer 0's FFN input
+    (S, d) and its attention q, k, v after RoPE with the kv heads repeated,
+    folded to (H, S, D)."""
+    from repro_torch.core import dsg_linear
+    from repro_torch.models import attention, transformer
+    ffn = Capture(dsg_linear.swiglu_ffn, 0)
+    att = Capture(attention.attend_direct, 0)
+    dsg_linear.swiglu_ffn, attention.attend_direct = ffn, att
+    try:
+        transformer.forward(model, dsg, cfg, tokens, last_only=True)
+    finally:
+        dsg_linear.swiglu_ffn, attention.attend_direct = ffn.fn, att.fn
+    if ffn.args is None or att.args is None:
+        fail("layer 0's FFN input or attention operands were not captured")
+    fold = tuple(a[0].transpose(0, 1).contiguous() for a in att.args[:3])
+    return ffn.args[1][0].contiguous(), fold
+
+
+class Call:
+    """Arguments of one kernel call, as `check_kernel` takes them."""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+
+def masks_agree(scores, got, want, keep, dtype) -> int:
+    """Rows where the kernels' group mask `got` differs from the plain
+    composition's `want`; fail unless every flipped group's plain score
+    ties the row's k-th largest score to within the scores' tolerance
+    (the kernels and the plain versions sum in another order)."""
+    import torch
+    thr = torch.topk(scores, keep, dim=-1).values[:, -1:]
+    rtol, atol = TOL[str(dtype)]
+    flipped = got != want
+    near = (scores - thr).abs() <= atol + rtol * thr.abs()
+    if bool((flipped & ~near).any()):
+        fail(f"dsg_ffn_full: the kernels' mask differs from the plain "
+             f"composition's away from a tie in {dtype}")
+    return int(flipped.any(dim=-1).sum())
+
+
+def dsg_ffn_phase(cfg, model, dsg, x):
+    """Phase 7: `ops.dsg_ffn_full` at full width; returns the kernels-line
+    row of the tile-masked FFN kernel."""
+    import torch
+    from repro_torch.core import drs
+    from repro_torch.kernels import drs_search, dsg_ffn, ops
+    ffn = model.layers[0].ffn
+    w = (ffn.w_gate.data, ffn.w_up.data, ffn.w_down.data)
+    r, fw = dsg["r"], dsg["fw"][0].contiguous()
+    gamma, block = 0.5, cfg.dsg.block
+    drs_cfg = drs.DRSConfig(gamma=gamma, block=block, threshold_mode="topk")
+    wrappers = {"drs_project": drs_search.drs_project,
+                "drs_scores": drs_search.drs_scores,
+                "dsg_ffn": dsg_ffn.dsg_ffn}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    y = ops.dsg_ffn_full(x, *w, r, fw, gamma=gamma, block=block)
+    torch.cuda.synchronize()
+    launches = {n: wr.launches for n, wr in wrappers.items()}
+    print(f"[dsg_ffn] ops.dsg_ffn_full x {list(x.shape)} -> {list(y.shape)}; "
+          f"launches {launches}", flush=True)
+    if any(n != 1 for n in launches.values()):
+        fail(f"ops.dsg_ffn_full launched {launches}, expected one each")
+    if y.shape != x.shape or not torch.isfinite(y.float()).all():
+        fail("ops.dsg_ffn_full gave a wrong shape or non-finite values")
+
+    keep = drs.keep_groups(fw.shape[1], drs_cfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        xd, rd, fwd = to_dtype((x, r, fw), dtype)
+        wd_ = to_dtype(w, dtype)
+        got = ops.dsg_ffn_full(xd, *wd_, rd, fwd, gamma=gamma, block=block)
+        mask_k = drs.select_mask(drs_search.drs_scores(
+            drs_search.drs_project(xd, rd), fwd, block=block), fw.shape[1],
+            drs_cfg)
+        scores_p = drs_search.drs_scores_plain(
+            drs_search.drs_project_plain(xd, rd), fwd, block=block)
+        mask_p = drs.select_mask(scores_p, fw.shape[1], drs_cfg)
+        flipped = masks_agree(scores_p, mask_k, mask_p, keep, dtype)
+        want = dsg_ffn.dsg_ffn_plain(xd, *wd_, mask_p, block=block)
+        same = (mask_k == mask_p).all(dim=-1)
+        rtol, atol = TOL[str(dtype)]
+        if not torch.allclose(got[same].float(), want[same].float(),
+                              rtol=rtol, atol=atol):
+            fail(f"ops.dsg_ffn_full differs from the plain composition in "
+                 f"{dtype} on rows with equal masks")
+        if dtype == x.dtype:
+            mask = mask_k
+        print(f"[dsg_ffn] {dtype}: dsg_ffn_full agrees with the plain "
+              f"composition; {flipped} of {x.shape[0]} rows' masks differ at "
+              f"near-ties", flush=True)
+        zeros = dsg_ffn.dsg_ffn(xd, *wd_, torch.zeros_like(mask_k),
+                                block=block)
+        if bool(zeros.any()):
+            fail(f"dsg_ffn with an all-zero mask is not exactly zero in "
+                 f"{dtype}")
+    shared = mask[:1].expand_as(mask).contiguous()
+    skip = {n: dsg_ffn.tile_skip_fraction(mk, 128, 128, block)
+            for n, mk in (("per_token", mask), ("shared", shared))}
+    print(f"[dsg_ffn] tile-skip fraction (bm = bf = 128): per-token mask "
+          f"{skip['per_token']}, batch-shared mask {skip['shared']}",
+          flush=True)
+    rows = {}
+    for n, mk in (("per_token", mask), ("shared", shared)):
+        rows[n] = check_kernel(f"dsg_ffn ({n} mask)", dsg_ffn.dsg_ffn,
+                               dsg_ffn.dsg_ffn_plain,
+                               Call(x, *w, mk, block=block), dsg_tile_cost,
+                               keep=(4,))
+        print(f"[dsg_ffn] {n} mask: {rows[n]['ms']:.4f} ms (plain "
+              f"{rows[n]['plain_ms']:.4f} ms, bound {rows[n]['bound_ms']:.4f}"
+              f" ms by {rows[n]['bound_by']}), max abs err bf16 "
+              f"{rows[n]['max_abs_err']:.3g} f32 "
+              f"{rows[n]['max_abs_err_f32']:.3g}", flush=True)
+    return {"name": "dsg_ffn", "route": "cuda",
+            "source": "src/repro_torch/csrc/dsg_ffn.cu",
+            "replaces": "src/repro/kernels/dsg_ffn.py:56",
+            "launches": launches["dsg_ffn"], **rows["per_token"],
+            "shared_mask": rows["shared"],
+            "tile_skip_fraction": skip}
+
+
+def flash_phase(cases):
+    """Phase 8: `ops.flash_attention` on each case's (q, k, v), causal;
+    returns the kernels-line row (case "a" in its main keys)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ops
+    fa.flash_attention.launches = 0
+    outs = {n: ops.flash_attention(*c, causal=True) for n, c in cases.items()}
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    print("[flash] ops.flash_attention " + ", ".join(
+        f"({n}) q {list(c[0].shape)} k/v {list(c[1].shape)}"
+        for n, c in cases.items()) + f"; launches {launches}", flush=True)
+    if launches != len(cases):
+        fail(f"flash_attention launched {launches} times, expected "
+             f"{len(cases)}")
+    for n, o in outs.items():
+        if o.shape != cases[n][0].shape or not torch.isfinite(o.float()).all():
+            fail(f"flash case ({n}) gave a wrong shape or non-finite values")
+    rows = {}
+    for n, (q, k, v) in cases.items():
+        s_len, t_len = q.shape[1], k.shape[1]
+        # SDPA's is_causal aligns the mask top-left; the suffix convention
+        # needs the explicit mask when S != T.  Its fused backends take
+        # (B, H, S, D), so the heads go to dim 1.
+        tril = torch.ones(s_len, t_len, dtype=torch.bool,
+                          device=q.device).tril(t_len - s_len)
+        kw = (dict(is_causal=True) if s_len == t_len
+              else dict(attn_mask=tril))
+        rows[n] = check_kernel(
+            f"flash_attention ({n})", fa.flash_attention,
+            fa.flash_attention_plain, Call(q, k, v, causal=True), flash_cost,
+            lambda q, k, v, kw=kw: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], **kw))
+        print(f"[flash] case ({n}): {rows[n]['ms']:.4f} ms (plain "
+              f"{rows[n]['plain_ms']:.4f} ms, SDPA "
+              f"{rows[n]['library_ms']:.4f} ms, bound "
+              f"{rows[n]['bound_ms']:.4f} ms by {rows[n]['bound_by']}), max "
+              f"abs err bf16 {rows[n]['max_abs_err']:.3g} f32 "
+              f"{rows[n]['max_abs_err_f32']:.3g}", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "launches": launches, **rows["a"],
+            "cases": {n: row for n, row in rows.items() if n != "a"}}
 
 
 def main() -> int:
@@ -396,6 +609,19 @@ def main() -> int:
               f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
               f"{row['bound_by']}), max abs err bf16 {row['max_abs_err']:.3g}"
               f" f32 {row['max_abs_err_f32']:.3g}", flush=True)
+
+    # 7-8. the tile-masked FFN and flash attention, each through its ops
+    # entry point with its own launch counts, on layer 0's operands of a
+    # 256-token prompt and of a 2048-token prompt that begins with it
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen, device=dev)
+    x_ffn, qkv_a = capture_layer0(cfg, model, dsg, tokens[:, :256])
+    _, (q_long, k_b, v_b) = capture_layer0(cfg, model, dsg, tokens)
+    rows.append(dsg_ffn_phase(cfg, model, dsg, x_ffn))
+    rows.append(flash_phase({"a": qkv_a,
+                             "b": (q_long[:, -256:].contiguous(), k_b, v_b)}))
+    print(f"[phases 7-8] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("paged_attention.cu", "dsg_ffn.cu", "drs_search.cu")
+SOURCES = ("paged_attention.cu", "dsg_ffn.cu", "drs_search.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "repro_drs_project": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     # dtype, fx, fw, out, m, k, f, block, rows, smem, stream
     "repro_drs_scores": [_I] + [_P] * 3 + [_I] * 6 + [_P],
+    # dtype, x, wg, wu, wd, token_mask, live, h, out, m, d, f, block, stream
+    "repro_dsg_ffn_tile": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    # dtype, q, k, v, out, bh, s, t, d, causal, offset, scale, stream
+    "repro_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
 }
 
 

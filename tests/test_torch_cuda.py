@@ -18,10 +18,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the plain versions' CPU work gains nothing from threads, which would only
+# contend with the other test workers
+torch.set_num_threads(1)
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import (drs_search, dsg_ffn, ops,  # noqa: E402
                                  paged_attention)
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving.dsg_runtime import DSGServingConfig  # noqa: E402
 from repro_torch.serving.scheduler import ServingEngine  # noqa: E402
@@ -159,14 +163,95 @@ def test_drs_scores_on_card(cuda, dtype, m, k, f, block):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
 
+def _tile_ffn_inputs(rng, m, d, f, block, dtype, dev, density=0.6):
+    x = _rand(rng, (m, d), dtype, dev)
+    wg = _rand(rng, (d, f), dtype, dev, 1 / math.sqrt(d))
+    wu = _rand(rng, (d, f), dtype, dev, 1 / math.sqrt(d))
+    wd = _rand(rng, (f, d), dtype, dev, 1 / math.sqrt(f))
+    mask = torch.from_numpy((rng.random((m, f // block)) < density).astype(
+        np.float32)).to(dev)
+    return x, wg, wu, wd, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,f,block,bm,bf", [
+    (64, 96, 256, 32, 32, 64), (48, 128, 320, 64, 16, 64),
+    (256, 2048, 8192, 128, 128, 128)])
+def test_dsg_ffn_tile_on_card(cuda, dtype, m, d, f, block, bm, bf):
+    """Per-token, batch-shared (dead cells) and all-zero masks; ragged
+    edges of the kernel's 64 x 64 cells at the middle shape."""
+    rng = np.random.default_rng(6)
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, m, d, f, block, dtype, cuda)
+    shared = mask[:1].expand_as(mask).contiguous()
+    for mk in (mask, shared):
+        got = dsg_ffn.dsg_ffn(x, wg, wu, wd, mk, block=block, bm=bm, bf=bf)
+        _close(got, dsg_ffn.dsg_ffn_plain(x, wg, wu, wd, mk, block=block),
+               dtype)
+    zeros = dsg_ffn.dsg_ffn(x, wg, wu, wd, torch.zeros_like(mask),
+                            block=block, bm=bm, bf=bf)
+    assert not zeros.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,t,d,causal,bq,bk", [
+    (4, 128, 128, 32, True, 32, 32), (2, 64, 192, 64, False, 32, 64),
+    (2, 48, 80, 16, True, 16, 16), (2, 64, 32, 16, True, 16, 16),
+    (16, 256, 256, 128, True, 128, 128),
+    (16, 256, 2048, 128, True, 128, 128)])
+def test_flash_attention_on_card(cuda, dtype, bh, s, t, d, causal, bq, bk):
+    """Ragged kernel tiles (S 48, T 80), causal S > T (rows before the
+    keys are exactly zero) and the full-width prefill and suffix cases."""
+    rng = np.random.default_rng(7)
+    q = _rand(rng, (bh, s, d), dtype, cuda)
+    k = _rand(rng, (bh, t, d), dtype, cuda)
+    v = _rand(rng, (bh, t, d), dtype, cuda)
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal), dtype)
+    if causal and s > t:
+        assert not got[:, :s - t].any()
+
+
+def test_tile_kernels_refuse_what_they_cannot_take(cuda):
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (2, 64, 512), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q, block_q=32, block_k=32)
+    q = _rand(rng, (2, 64, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="flash_attention"):
+        fa.flash_attention(q, q, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="flash_attention"):
+        fa.flash_attention(q, q, q, block_q=48)
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, 64, 32, 128, 32,
+                                           torch.float32, cuda)
+    with pytest.raises(ValueError, match="dsg_ffn"):
+        dsg_ffn.dsg_ffn(x, wg, wu, wd, mask, block=32, bm=48, bf=64)
+    with pytest.raises(ValueError, match="dsg_ffn"):
+        dsg_ffn.dsg_ffn(x, wg, wu, wd, mask[:, :2], block=32, bm=32, bf=64)
+
+
 def test_ops_launch_kernels_on_card(cuda):
-    """CUDA tensors go through the kernels: each call adds one launch."""
+    """CUDA tensors go through the kernels: each call adds one launch, and
+    dsg_ffn_full launches the DRS kernels and the tile-masked FFN once
+    each."""
     rng = np.random.default_rng(5)
     x = _rand(rng, (4, 64), torch.float32, cuda)
     r = _rand(rng, (64, 64), torch.float32, cuda)
     before = drs_search.drs_project.launches
     ops.drs_project(x, r)
     assert drs_search.drs_project.launches == before + 1
+    x, wg, wu, wd, _ = _tile_ffn_inputs(rng, 64, 64, 256, 64, torch.float32,
+                                        cuda)
+    fw = r @ wg
+    wrappers = (drs_search.drs_project, drs_search.drs_scores,
+                dsg_ffn.dsg_ffn)
+    before = [w.launches for w in wrappers]
+    y = ops.dsg_ffn_full(x, wg, wu, wd, r, fw, gamma=0.5, block=64)
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    assert y.shape == x.shape
+    q = _rand(rng, (2, 32, 16), torch.float32, cuda)
+    before = fa.flash_attention.launches
+    ops.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before + 1
 
 
 def _smoke_streams(device, dsg_serving):
