@@ -21,11 +21,19 @@ result line):
 5. check  — the smoke model's greedy streams on the card (kernels) equal
             those on the CPU (plain versions).
 6. kernels — each kernel against its plain PyTorch version on inputs
-            captured from the serve run, in bf16 and in f32; CUDA-event
-            times (median of 30) of the kernel, the plain version and, where
-            one PyTorch call computes the same function, that call; and the
-            least time the card could take (bytes at 3.35 TB/s or flops at
-            989 TFLOP/s, whichever is larger).
+            captured from the serve run, in bf16 and in f32 (the DRS kernels
+            at both of their serve-path shapes: admission, M = the prompt
+            bucket, and refresh, M = the lane count); device times (median
+            of 30) of the kernel, the plain version and, where one PyTorch
+            call computes the same function, that call; and the least time
+            the card could take (bytes at 3.35 TB/s or flops at 989 TFLOP/s,
+            whichever is larger).  A device time is the summed duration of
+            the kernels one call launches, from torch.profiler's device
+            events, which leaves out the device's idle gaps between a
+            call's launches; `span_ms` is the time from the call's first
+            start to its last end, gaps included; `call_ms` is the
+            CUDA-event time around one call, which also holds the host's
+            dispatch while the device waits.
 7. dsg_ffn — the tile-masked DSG FFN through `ops.dsg_ffn_full` (DRS
             project -> scores -> per-row top-k mask -> tile-masked FFN) on
             layer 0's FFN input of one 256-token prompt with layer 0's
@@ -39,7 +47,14 @@ result line):
             S = T = 256, causal; (b) the last 256 queries of a 2048-token
             prompt against all 2048 keys, causal with offset 1792.  Held
             against the plain version and timed beside
-            torch.nn.functional.scaled_dot_product_attention.
+            torch.nn.functional.scaled_dot_product_attention (is_causal in
+            (a), the lower-right causal bias in (b)).  Both cases must take
+            the tensor-core kernel in bf16.
+9. splits — device times of the tensor-core kernels at the split counts
+            around the ones their plans pick, at the main shapes (flash
+            (a) and (b), drs_project at admission), through the C entry
+            points (no wrapper counts these launches), each output held
+            against the plain version: the measurement behind the plans.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -50,6 +65,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 SEED = 0
@@ -58,6 +74,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 CAPTURE_STEP = 12                  # decode step whose layer-0 call is kept
 TIMING_REPS = 30
+WARM_REPS = 5                      # profiled calls before the timed ones
+CALL_GAP_NS = 3_000_000            # idle device time that ends a call
+PROFILE_TRIES = 3                  # traces device_ms takes to find a clean one
 # (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
 # for values near zero; in f32, summation order
 TOL = {"torch.bfloat16": (8e-3, 4e-3), "torch.float32": (1e-4, 1e-4)}
@@ -76,25 +95,94 @@ def card_line() -> str:
 
 
 class Capture:
-    """Wraps an `ops` entry point: passes every call through and keeps a
-    clone of the arguments of call number `at`."""
+    """Wraps an `ops` entry point: passes every call through, counts the
+    calls that `when(args)` admits (all by default) and keeps a clone of
+    the arguments of the admitted call number `at`."""
 
-    def __init__(self, fn, at: int):
-        self.fn, self.at, self.n, self.args, self.kwargs = fn, at, 0, None, None
+    def __init__(self, fn, at: int, when=None, key=None):
+        self.fn, self.at, self.when, self.key = fn, at, when, key
+        self.n, self.args, self.kwargs = 0, None, None
+        self.tally = Counter()       # admitted calls by key(args)
 
     def __call__(self, *args, **kwargs):
         import torch
-        if self.n == self.at:
-            self.args = tuple(a.clone() if torch.is_tensor(a) else a
-                              for a in args)
-            self.kwargs = dict(kwargs)
-        self.n += 1
+        if self.when is None or self.when(args):
+            if self.key is not None:
+                self.tally[self.key(args)] += 1
+            if self.n == self.at:
+                self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args)
+                self.kwargs = dict(kwargs)
+            self.n += 1
         return self.fn(*args, **kwargs)
 
 
+def device_ms(fn) -> tuple:
+    """Device time of one call: the summed durations of the kernels and
+    copies it launches, from torch.profiler's device events, median over
+    the last TIMING_REPS of WARM_REPS + TIMING_REPS profiled calls.  Each
+    call ends in a synchronize and 5 ms of idle host, so on the device's
+    own clock a call's events form one run, separated from the next by an
+    idle gap of over CALL_GAP_NS.  (The profiler's host and device clocks
+    are not aligned closely enough to assign events to host-side ranges,
+    and it can miss the events of the first calls after it starts, which
+    the warm-up calls absorb.)  A trace is taken only if it split into more
+    than TIMING_REPS and at most WARM_REPS + TIMING_REPS runs and every
+    timed call has the same number of events: a call that lost events, or
+    two calls merged into one run, would not.  Up to PROFILE_TRIES traces
+    are taken; fails if none passes.  Returns (ms, a note: the median
+    call's span from its first start to its last end, which also holds the
+    device's idle gaps between its launches; the runs found; the events of
+    each timed call; and the kernel names of the median call and their
+    durations)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(WARM_REPS + TIMING_REPS):
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.005)
+        spans = sorted(
+            (e.start_ns(), e.end_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)())
+        runs, end = [], None
+        for s, e, name in spans:
+            if end is None or s - end > CALL_GAP_NS:
+                runs.append([])
+            runs[-1].append((s, e, name))
+            end = e if end is None else max(end, e)
+        calls = runs[-TIMING_REPS:]
+        counts = sorted({len(c) for c in calls})
+        seen.append([len(runs), counts])
+        if TIMING_REPS < len(runs) <= WARM_REPS + TIMING_REPS \
+                and len(counts) == 1:
+            break
+    else:
+        fail(f"no clean device trace in {PROFILE_TRIES} tries: [runs, "
+             f"events per timed call] {seen}")
+    times = sorted((sum(e - s for s, e, _ in c), i)
+                   for i, c in enumerate(calls))
+    widths = sorted(max(e for _, e, _ in c) - c[0][0] for c in calls)
+    ns, mid = times[len(times) // 2]
+    return ns / 1e6, {"span_ms": widths[len(widths) // 2] / 1e6,
+                      "runs": len(runs), "events_per_call": counts[0],
+                      "tries": len(seen),
+                      "kernels": [n[:60] for _, _, n in calls[mid]][:8],
+                      "kernel_ns": [e - s for s, e, _ in calls[mid]][:8]}
+
+
 def time_ms(fn) -> float:
-    """Median CUDA-event time of one call, over TIMING_REPS calls after a
-    warm-up."""
+    """Median CUDA-event time around one call, over TIMING_REPS calls after
+    a warm-up: the device's time plus whatever host dispatch it waits
+    for."""
     import torch
     for _ in range(3):
         fn()
@@ -205,7 +293,8 @@ def flash_cost(q, k, v, *, causal=True):
 
 def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
     """Hold `kernel` against `plain` on the captured inputs in bf16 and
-    f32 and time both (and `library`) on the bf16 inputs; the args at
+    f32 and time both (and `library`) on the bf16 inputs, by device time
+    (`ms`) and by events around one call (`call_ms`); the args at
     positions `keep` stay in their dtype."""
     import torch
     row = {}
@@ -235,10 +324,19 @@ def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
             row["shapes"] = [list(a.shape) for a in cap.args
                              if torch.is_tensor(a)]
             row["tol_bf16"] = [rtol, atol]
-            row["ms"] = time_ms(lambda: kernel(*args, **cap.kwargs))
-            row["plain_ms"] = time_ms(lambda: plain(*args, **cap.kwargs))
-            row["library_ms"] = (time_ms(lambda: library(*args))
-                                 if library is not None else None)
+            timed = {"": lambda: kernel(*args, **cap.kwargs),
+                     "plain_": lambda: plain(*args, **cap.kwargs),
+                     "library_": None if library is None
+                     else lambda: library(*args)}
+            for pre, fn in timed.items():
+                if fn is None:
+                    row[f"{pre}ms"] = row[f"{pre}span_ms"] = None
+                    row[f"{pre}call_ms"] = None
+                    continue
+                row[f"{pre}ms"], note = device_ms(fn)
+                row[f"{pre}span_ms"] = note["span_ms"]
+                row[f"{pre}call_ms"] = time_ms(fn)
+                row[f"{pre}timing"] = note
             row["bound_ms"], row["bound_by"] = bound(
                 *cost(*args, **cap.kwargs), dtype)
         else:
@@ -409,7 +507,8 @@ def dsg_ffn_phase(cfg, model, dsg, x):
                                dsg_ffn.dsg_ffn_plain,
                                Call(x, *w, mk, block=block), dsg_tile_cost,
                                keep=(4,))
-        print(f"[dsg_ffn] {n} mask: {rows[n]['ms']:.4f} ms (plain "
+        print(f"[dsg_ffn] {n} mask: {rows[n]['ms']:.4f} ms on the device, "
+              f"{rows[n]['call_ms']:.4f} ms a call (plain "
               f"{rows[n]['plain_ms']:.4f} ms, bound {rows[n]['bound_ms']:.4f}"
               f" ms by {rows[n]['bound_by']}), max abs err bf16 "
               f"{rows[n]['max_abs_err']:.3g} f32 "
@@ -424,20 +523,30 @@ def dsg_ffn_phase(cfg, model, dsg, x):
 
 def flash_phase(cases):
     """Phase 8: `ops.flash_attention` on each case's (q, k, v), causal;
-    returns the kernels-line row (case "a" in its main keys)."""
+    returns the kernels-line row (case "a" in its main keys).  Fails
+    unless every bf16 case took the tensor-core kernel."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels import flash_attention as fa, ops
     fa.flash_attention.launches = 0
+    fa.flash_attention.launches_tc = 0
+    fa.flash_attention.launches_simt = 0
     outs = {n: ops.flash_attention(*c, causal=True) for n, c in cases.items()}
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
+    paths = {"tc": fa.flash_attention.launches_tc,
+             "simt": fa.flash_attention.launches_simt}
     print("[flash] ops.flash_attention " + ", ".join(
         f"({n}) q {list(c[0].shape)} k/v {list(c[1].shape)}"
-        for n, c in cases.items()) + f"; launches {launches}", flush=True)
+        for n, c in cases.items()) + f"; launches {launches} {paths}",
+        flush=True)
     if launches != len(cases):
         fail(f"flash_attention launched {launches} times, expected "
              f"{len(cases)}")
+    if paths["tc"] != sum(c[0].dtype == torch.bfloat16
+                          for c in cases.values()):
+        fail(f"a bf16 flash case missed the tensor-core kernel: {paths}")
     for n, o in outs.items():
         if o.shape != cases[n][0].shape or not torch.isfinite(o.float()).all():
             fail(f"flash case ({n}) gave a wrong shape or non-finite values")
@@ -445,28 +554,96 @@ def flash_phase(cases):
     for n, (q, k, v) in cases.items():
         s_len, t_len = q.shape[1], k.shape[1]
         # SDPA's is_causal aligns the mask top-left; the suffix convention
-        # needs the explicit mask when S != T.  Its fused backends take
-        # (B, H, S, D), so the heads go to dim 1.
-        tril = torch.ones(s_len, t_len, dtype=torch.bool,
-                          device=q.device).tril(t_len - s_len)
+        # is the lower-right causal bias, which its fused backends take
+        # without a mask tensor.  They take (B, H, S, D): heads to dim 1.
         kw = (dict(is_causal=True) if s_len == t_len
-              else dict(attn_mask=tril))
+              else dict(attn_mask=causal_lower_right(s_len, t_len)))
         rows[n] = check_kernel(
             f"flash_attention ({n})", fa.flash_attention,
             fa.flash_attention_plain, Call(q, k, v, causal=True), flash_cost,
             lambda q, k, v, kw=kw: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], **kw))
-        print(f"[flash] case ({n}): {rows[n]['ms']:.4f} ms (plain "
+        p = fa.plan(q.shape[0], s_len, t_len, q.shape[2], q.dtype)
+        rows[n].update(path=p.path, splits=p.splits, blocks=p.blocks)
+        print(f"[flash] case ({n}): {rows[n]['ms']:.4f} ms on the device "
+              f"({rows[n]['span_ms']:.4f} ms first start to last end), "
+              f"{rows[n]['call_ms']:.4f} ms a call (path {p.path}, "
+              f"{p.splits} key splits, {p.blocks} blocks; plain "
               f"{rows[n]['plain_ms']:.4f} ms, SDPA "
-              f"{rows[n]['library_ms']:.4f} ms, bound "
+              f"{rows[n]['library_ms']:.4f} ms (span "
+              f"{rows[n]['library_span_ms']:.4f} ms) / "
+              f"{rows[n]['library_call_ms']:.4f} ms a call via "
+              f"{rows[n]['library_timing']['kernels']}, bound "
               f"{rows[n]['bound_ms']:.4f} ms by {rows[n]['bound_by']}), max "
               f"abs err bf16 {rows[n]['max_abs_err']:.3g} f32 "
               f"{rows[n]['max_abs_err_f32']:.3g}", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
-            "launches": launches, **rows["a"],
+            "launches": launches, "launches_by_path": paths, **rows["a"],
             "cases": {n: row for n, row in rows.items() if n != "a"}}
+
+
+def split_sweep(cases, x, r) -> dict:
+    """Phase 9: device time of the bf16 tensor-core kernels at other split
+    counts than their plans pick: flash attention on each case, causal,
+    and drs_project on the admission shape.  The output at every split
+    count is held against the plain version.  Returns {shape: {"plan":
+    splits, "ms_by_splits": {splits: ms}}}."""
+    import math
+    import torch
+    from repro_torch.kernels import cuda_lib, drs_search
+    from repro_torch.kernels import flash_attention as fa
+    stream = cuda_lib.stream(x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    rtol, atol = TOL[str(torch.bfloat16)]
+    sweep = {}
+
+    def check(name, splits, got, want):
+        if not torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=atol):
+            err = float((got.float() - want.float()).abs().max())
+            fail(f"{name} at {splits} splits differs from its plain version "
+                 f"(max abs err {err})")
+
+    for n, (q, k, v) in cases.items():
+        (bh, s_len, d), t_len = q.shape, k.shape[1]
+        n_kt = -(-t_len // fa.TC_KEYS)
+        out, by = torch.empty_like(q), {}
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        for per in sorted({1, 2, 4, 8, 11, 16, n_kt} & set(range(1, n_kt + 1))):
+            splits = -(-n_kt // per)
+            acc = torch.empty((splits, bh, s_len, d), **f32)
+            ml = torch.empty((splits, bh, s_len, 2), **f32)
+            by[splits] = device_ms(lambda: cuda_lib.launch(
+                "repro_flash_attention_tc", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), acc.data_ptr(), ml.data_ptr(),
+                bh, s_len, t_len, d, 1, t_len - s_len, 1 / math.sqrt(d), per,
+                splits, stream))[0]
+            check(f"flash ({n})", splits, out, want)
+        sweep[f"flash ({n})"] = {
+            "plan": fa.plan(bh, s_len, t_len, d, q.dtype).splits,
+            "ms_by_splits": by}
+    (m, d), k_ = x.shape, r.shape[0]
+    chunks = -(-d // drs_search.TC_TILE)
+    out, by = torch.empty((m, k_), dtype=x.dtype, device=x.device), {}
+    want = drs_search.drs_project_plain(x, r)
+    for per in (1, 2, 3, 4, 8, chunks):
+        splits = -(-chunks // per)
+        ws = torch.empty((splits, m, k_), **f32)
+        by[splits] = device_ms(lambda: cuda_lib.launch(
+            "repro_drs_project_tc", x.data_ptr(), r.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), m, k_, d, per, splits, stream))[0]
+        check("drs_project", splits, out, want)
+    sweep[f"drs_project x {list(x.shape)}"] = {
+        "plan": drs_search.project_plan(m, k_, d, x.dtype).splits,
+        "ms_by_splits": by}
+    for name, row in sweep.items():
+        print(f"[splits] {name}: plan {row['plan']} splits; device ms by "
+              f"splits " + ", ".join(f"{sp}: {ms:.4f}" for sp, ms in
+                                      sorted(row["ms_by_splits"].items())),
+              flush=True)
+    return sweep
 
 
 def main() -> int:
@@ -517,19 +694,37 @@ def main() -> int:
                "dsg_ffn_csr": (dsg_ffn.dsg_ffn_csr, "dsg_ffn_csr"),
                "drs_project": (drs_search.drs_project, "drs_project"),
                "drs_scores": (drs_search.drs_scores, "drs_scores")}
-    captures = {}
+    drs = ("drs_project", "drs_scores")
+    project_paths = ("gemv", "tc", "simt")
+    lanes = eng_kw["n_slots"]
+    captures, refresh = {}, {}
+
+    def project_path(args):
+        (m, d), k = args[0].shape, args[1].shape[0]
+        return drs_search.project_plan(m, k, d, args[0].dtype).path
+
     for name, (_, op) in kernels.items():
-        at = cfg.n_layers * CAPTURE_STEP if name in (
-            "paged_decode", "dsg_ffn_csr") else 0
-        captures[name] = Capture(getattr(ops, op), at)
-        setattr(ops, op, captures[name])
+        at = cfg.n_layers * CAPTURE_STEP if name not in drs else 0
+        captures[name] = Capture(getattr(ops, op), at, key=(
+            project_path if name == "drs_project" else None))
+        wrapped = captures[name]
+        if name in drs:
+            # the DRS kernels run at two shapes: M = the prompt bucket at
+            # admission (call 0) and M = the lane count at refresh steps
+            refresh[name] = wrapped = Capture(
+                captures[name], 0, when=lambda a: a[0].shape[0] == lanes)
+        setattr(ops, op, wrapped)
     try:
         for wrapper, _ in kernels.values():
             wrapper.launches = 0
+        for p in project_paths:
+            setattr(drs_search.drs_project, f"launches_{p}", 0)
         stats = run_workload(cfg, model, dsg,
                              mixed_requests(cfg.vocab, 8, seed=SEED),
                              **eng_kw)
         launches = {n: w.launches for n, (w, _) in kernels.items()}
+        by_path = {p: getattr(drs_search.drs_project, f"launches_{p}")
+                   for p in project_paths}
     finally:
         for name, (_, op) in kernels.items():
             setattr(ops, op, captures[name].fn)
@@ -544,19 +739,37 @@ def main() -> int:
     print("[serve] stats " + json.dumps(stats), flush=True)
     if stats["requests"] != 8 or stats["ok_requests"] != 8:
         fail(f"not every request finished ok: {stats}")
+    by_shape = {"admission": cfg.n_layers * stats["admissions"],
+                "refresh": cfg.n_layers * stats["refresh_steps"]}
     want = {"paged_decode": cfg.n_layers * stats["steps"],
             "dsg_ffn_csr": cfg.n_layers * stats["steps"],
-            "drs_project": cfg.n_layers * (stats["admissions"]
-                                           + stats["refresh_steps"]),
-            "drs_scores": cfg.n_layers * (stats["admissions"]
-                                          + stats["refresh_steps"])}
-    print(f"[serve] launches {launches} (expected {want})", flush=True)
+            "drs_project": sum(by_shape.values()),
+            "drs_scores": sum(by_shape.values())}
+    print(f"[serve] launches {launches} (expected {want}); drs_project by "
+          f"path {by_path}", flush=True)
     for name in kernels:
         if launches[name] != want[name] or not launches[name]:
             fail(f"{name} launched {launches[name]} times on the serve "
                  f"path, expected {want[name]}")
         if captures[name].args is None:
             fail(f"no call of {name} was captured")
+    for name in drs:
+        got = {"admission": launches[name] - refresh[name].n,
+               "refresh": refresh[name].n}
+        if got != by_shape or refresh[name].args is None:
+            fail(f"{name} launched {got} times by shape, expected "
+                 f"{by_shape}")
+    # each call took the path its shape plans: the admission shape the
+    # wgmma tiles, the refresh shape the GEMV
+    planned = {p: captures["drs_project"].tally[p] for p in project_paths}
+    if by_path != planned:
+        fail(f"drs_project launched {by_path} by path on the serve run, "
+             f"its shapes plan {planned}")
+    for cap, path in ((captures["drs_project"], "tc"),
+                      (refresh["drs_project"], "gemv")):
+        if project_path(cap.args) != path:
+            fail(f"drs_project at x {list(cap.args[0].shape)} plans "
+                 f"{project_path(cap.args)}, not {path}")
 
     # 4. where the device time goes in a short serve run
     prof = profile_serve(cfg, model, dsg, eng_kw)
@@ -602,13 +815,32 @@ def main() -> int:
     for name, kernel, plain, cost, library, source, replaces in specs:
         row = check_kernel(name, kernel, plain, captures[name], cost,
                            library)
+        shapes = {"": row}
+        if name in drs:
+            row["launches_by_shape"] = by_shape
+            row["refresh"] = shapes["refresh "] = dict(
+                check_kernel(name, kernel, plain, refresh[name], cost,
+                             library), launches=by_shape["refresh"])
+        if name == "drs_project":
+            row["launches_by_path"] = by_path
+            row["path"] = project_path(captures[name].args)
+            row["refresh"]["path"] = project_path(refresh[name].args)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      **row})
-        print(f"[kernel] {name}: {row['ms']:.4f} ms (plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']}), max abs err bf16 {row['max_abs_err']:.3g}"
-              f" f32 {row['max_abs_err_f32']:.3g}", flush=True)
+        for label, r in shapes.items():
+            lib = ("" if r["library_ms"] is None else
+                   f", library {r['library_ms']:.4f} ms (span "
+                   f"{r['library_span_ms']:.4f} ms) / "
+                   f"{r['library_call_ms']:.4f} ms a call")
+            path = f" path {r['path']}," if "path" in r else ""
+            print(f"[kernel] {name} {label}{r['shapes']}:{path} "
+                  f"{r['ms']:.4f} ms on the device ({r['span_ms']:.4f} ms "
+                  f"first start to last end), {r['call_ms']:.4f} ms a "
+                  f"call (plain {r['plain_ms']:.4f} ms{lib}, bound "
+                  f"{r['bound_ms']:.5f} ms by {r['bound_by']}), max abs err "
+                  f"bf16 {r['max_abs_err']:.3g} f32 "
+                  f"{r['max_abs_err_f32']:.3g}", flush=True)
 
     # 7-8. the tile-masked FFN and flash attention, each through its ops
     # entry point with its own launch counts, on layer 0's operands of a
@@ -619,9 +851,16 @@ def main() -> int:
     x_ffn, qkv_a = capture_layer0(cfg, model, dsg, tokens[:, :256])
     _, (q_long, k_b, v_b) = capture_layer0(cfg, model, dsg, tokens)
     rows.append(dsg_ffn_phase(cfg, model, dsg, x_ffn))
-    rows.append(flash_phase({"a": qkv_a,
-                             "b": (q_long[:, -256:].contiguous(), k_b, v_b)}))
+    cases = {"a": qkv_a, "b": (q_long[:, -256:].contiguous(), k_b, v_b)}
+    rows.append(flash_phase(cases))
     print(f"[phases 7-8] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 9. the split counts around the plans' choices
+    sweep = split_sweep(cases, *captures["drs_project"].args)
+    rows[-1]["split_sweep"] = {n: r for n, r in sweep.items()
+                               if n.startswith("flash")}
+    next(r for r in rows if r["name"] == "drs_project")["split_sweep"] = {
+        n: r for n, r in sweep.items() if n.startswith("drs")}
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,12 +43,19 @@ _SIGNATURES = {
     "repro_dsg_ffn_csr": [_I] + [_P] * 8 + [_I] * 5 + [_P],
     # dtype, x, r, out, m, k, d, stream
     "repro_drs_project": [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    # x, r, out, m, k, d, shares, stream
+    "repro_drs_project_gemv": [_P] * 3 + [_I] * 4 + [_P],
+    # x, r, out, ws, m, k, d, chunks_per_split, splits, stream
+    "repro_drs_project_tc": [_P] * 4 + [_I] * 5 + [_P],
     # dtype, fx, fw, out, m, k, f, block, rows, smem, stream
     "repro_drs_scores": [_I] + [_P] * 3 + [_I] * 6 + [_P],
     # dtype, x, wg, wu, wd, token_mask, live, h, out, m, d, f, block, stream
     "repro_dsg_ffn_tile": [_I] + [_P] * 8 + [_I] * 4 + [_P],
     # dtype, q, k, v, out, bh, s, t, d, causal, offset, scale, stream
     "repro_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
+    # q, k, v, out, ws_acc, ws_ml, bh, s, t, d, causal, offset, scale,
+    # tiles_per_split, splits, stream
+    "repro_flash_attention_tc": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
 }
 
 
@@ -159,4 +166,15 @@ def launch(name: str, *args) -> None:
 
 
 def stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, read at call time, so a launch
+    follows the caller's stream (and a CUDA graph's capture stream)."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_aligned16(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary, as TMA and
+    bulk copies need."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                             f"boundary for the {t.dtype} kernel")

@@ -138,15 +138,33 @@ def test_dsg_ffn_csr_on_card(cuda, dtype, b, d, f, block, k):
     _close(got, want, dtype)
 
 
+PROJECT_PATHS = ("gemv", "tc", "simt")
+
+
+def _path_launches(wrapper, paths):
+    return {p: getattr(wrapper, f"launches_{p}") for p in paths}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,k", [(64, 128, 64), (4, 2048, 256),
-                                   (37, 320, 128), (256, 2048, 256)])
+@pytest.mark.parametrize("m,d,k", [
+    (64, 128, 64), (4, 2048, 256), (37, 320, 128), (256, 2048, 256),
+    (1, 2048, 256), (16, 2048, 256), (17, 2048, 256), (192, 2048, 256),
+    (1, 320, 256), (4, 320, 256), (16, 320, 256), (17, 320, 256),
+    (192, 320, 256), (256, 320, 256)])
 def test_drs_project_on_card(cuda, dtype, m, d, k):
+    """bf16 takes the GEMV for M <= 16 and the split-d wgmma tiles above;
+    f32 the SIMT tile.  Each call adds one launch to its path's count."""
     rng = np.random.default_rng(3)
     x = _rand(rng, (m, d), dtype, cuda)
     r = _rand(rng, (k, d), dtype, cuda, 1 / math.sqrt(k))
-    _close(drs_search.drs_project(x, r), drs_search.drs_project_plain(x, r),
-           dtype)
+    want = ("simt" if dtype == torch.float32
+            else "gemv" if m <= 16 else "tc")
+    assert drs_search.project_plan(m, k, d, dtype).path == want
+    before = _path_launches(drs_search.drs_project, PROJECT_PATHS)
+    got = drs_search.drs_project(x, r)
+    after = _path_launches(drs_search.drs_project, PROJECT_PATHS)
+    assert after == {p: n + (p == want) for p, n in before.items()}
+    _close(got, drs_search.drs_project_plain(x, r), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -197,18 +215,53 @@ def test_dsg_ffn_tile_on_card(cuda, dtype, m, d, f, block, bm, bf):
     (4, 128, 128, 32, True, 32, 32), (2, 64, 192, 64, False, 32, 64),
     (2, 48, 80, 16, True, 16, 16), (2, 64, 32, 16, True, 16, 16),
     (16, 256, 256, 128, True, 128, 128),
-    (16, 256, 2048, 128, True, 128, 128)])
+    (16, 256, 2048, 128, True, 128, 128),
+    (2, 48, 80, 64, True, 16, 16), (2, 128, 64, 64, True, 64, 64),
+    (2, 64, 4096, 64, True, 64, 128),
+    (2, 64, 128, 192, True, 64, 64), (4, 128, 1024, 192, True, 128, 128),
+    (2, 64, 128, 256, True, 64, 64), (4, 128, 1024, 256, True, 128, 128)])
 def test_flash_attention_on_card(cuda, dtype, bh, s, t, d, causal, bq, bk):
     """Ragged kernel tiles (S 48, T 80), causal S > T (rows before the
-    keys are exactly zero) and the full-width prefill and suffix cases."""
+    keys are exactly zero), the full-width prefill and suffix cases (the
+    latter split across blocks in bf16), many splits at T = 4096, and head
+    dims 192 and 256 in one block and split.  bf16 with D a multiple of 64
+    takes the tensor-core kernel, the rest the SIMT kernel."""
     rng = np.random.default_rng(7)
     q = _rand(rng, (bh, s, d), dtype, cuda)
     k = _rand(rng, (bh, t, d), dtype, cuda)
     v = _rand(rng, (bh, t, d), dtype, cuda)
+    plan = fa.plan(bh, s, t, d, dtype)
+    want = "tc" if dtype == torch.bfloat16 and d % 64 == 0 else "simt"
+    assert plan.path == want
+    if want == "tc" and t >= 1024:
+        assert plan.splits > 1
+    elif want == "tc" and t == 128:
+        assert plan.splits == 1
+    before = _path_launches(fa.flash_attention, ("tc", "simt"))
     got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    after = _path_launches(fa.flash_attention, ("tc", "simt"))
+    assert after == {p: n + (p == want) for p, n in before.items()}
     _close(got, fa.flash_attention_plain(q, k, v, causal=causal), dtype)
     if causal and s > t:
         assert not got[:, :s - t].any()
+
+
+def test_tc_kernels_repeat_bitwise_on_card(cuda):
+    """The split-KV flash kernel and both bf16 drs_project paths merge
+    their splits in a fixed order: two calls give the same bits."""
+    rng = np.random.default_rng(9)
+    bf = torch.bfloat16
+    q = _rand(rng, (16, 256, 128), bf, cuda)
+    k = _rand(rng, (16, 2048, 128), bf, cuda)
+    v = _rand(rng, (16, 2048, 128), bf, cuda)
+    assert fa.plan(16, 256, 2048, 128, bf).splits > 1
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention(q, k, v))
+    r = _rand(rng, (256, 2048), bf, cuda, 1 / 16)
+    for m in (4, 192):
+        x = _rand(rng, (m, 2048), bf, cuda)
+        assert torch.equal(drs_search.drs_project(x, r),
+                           drs_search.drs_project(x, r))
 
 
 def test_tile_kernels_refuse_what_they_cannot_take(cuda):
@@ -227,6 +280,38 @@ def test_tile_kernels_refuse_what_they_cannot_take(cuda):
         dsg_ffn.dsg_ffn(x, wg, wu, wd, mask, block=32, bm=48, bf=64)
     with pytest.raises(ValueError, match="dsg_ffn"):
         dsg_ffn.dsg_ffn(x, wg, wu, wd, mask[:, :2], block=32, bm=32, bf=64)
+
+
+def _unaligned(t):
+    """A contiguous copy of t that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_tc_kernels_refuse_unaligned_on_card(cuda):
+    """The TMA and bulk-copy paths raise on an operand off a 16-byte
+    boundary, and launch nothing; f32 takes the SIMT kernels at any
+    alignment."""
+    rng = np.random.default_rng(10)
+    bf = torch.bfloat16
+    q = _rand(rng, (2, 64, 128), bf, cuda)
+    x, r = _rand(rng, (4, 256), bf, cuda), _rand(rng, (64, 256), bf, cuda)
+    xm = _rand(rng, (64, 256), bf, cuda)
+    before = (fa.flash_attention.launches, drs_search.drs_project.launches)
+    for args in ((_unaligned(q), q, q), (q, q, _unaligned(q))):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(*args)
+    for args in ((_unaligned(x), r), (x, _unaligned(r)), (_unaligned(xm), r)):
+        with pytest.raises(ValueError, match="16-byte"):
+            drs_search.drs_project(*args)
+    assert (fa.flash_attention.launches,
+            drs_search.drs_project.launches) == before
+    x32, r32 = _unaligned(x.float()), _unaligned(r.float())
+    _close(drs_search.drs_project(x32, r32),
+           drs_search.drs_project_plain(x32, r32), torch.float32)
 
 
 def test_ops_launch_kernels_on_card(cuda):
