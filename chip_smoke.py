@@ -15,7 +15,10 @@ result line):
             8 mixed-length requests.  The kernels' launch counters are set
             to 0 just before the run and read just after; each kernel must
             have launched once per layer per decode step (paged decode,
-            group-CSR FFN) or per admission and refresh step (DRS search).
+            group-CSR FFN) or per admission and refresh step (DRS search),
+            and every launch of drs_project, paged decode and the CSR FFN
+            must have taken the path its shape plans: at this width in
+            bf16, the split paged kernel and the union CSR kernels.
 4. profile — a short full-width serve run under torch.profiler: the
             device's busy share and device time by kernel.
 5. check  — the smoke model's greedy streams on the card (kernels) equal
@@ -33,7 +36,9 @@ result line):
             call's launches; `span_ms` is the time from the call's first
             start to its last end, gaps included; `call_ms` is the
             CUDA-event time around one call, which also holds the host's
-            dispatch while the device waits.
+            dispatch while the device waits.  The CSR FFN's row also
+            times the dense SwiGLU at the same x through torch.matmul: not
+            the same function, but the yardstick DSG decode has to beat.
 7. dsg_ffn — the tile-masked DSG FFN through `ops.dsg_ffn_full` (DRS
             project -> scores -> per-row top-k mask -> tile-masked FFN) on
             layer 0's FFN input of one 256-token prompt with layer 0's
@@ -50,11 +55,14 @@ result line):
             torch.nn.functional.scaled_dot_product_attention (is_causal in
             (a), the lower-right causal bias in (b)).  Both cases must take
             the tensor-core kernel in bf16.
-9. splits — device times of the tensor-core kernels at the split counts
+9. splits — device times of the redesigned kernels at the split counts
             around the ones their plans pick, at the main shapes (flash
-            (a) and (b), drs_project at admission), through the C entry
-            points (no wrapper counts these launches), each output held
-            against the plain version: the measurement behind the plans.
+            (a) and (b), drs_project at admission; the union CSR FFN's
+            gate/up cluster and slice and its down tile and splits, and
+            the split paged kernel at 1, 2, 4 and 8 splits, on the serve
+            run's captured inputs), through the C entry points (no wrapper
+            counts these launches), each output held against the plain
+            version: the measurement behind the plans.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -96,8 +104,9 @@ def card_line() -> str:
 
 class Capture:
     """Wraps an `ops` entry point: passes every call through, counts the
-    calls that `when(args)` admits (all by default) and keeps a clone of
-    the arguments of the admitted call number `at`."""
+    calls that `when(args)` admits (all by default), tallies them by
+    key(args, kwargs) and keeps a clone of the arguments of the admitted
+    call number `at`."""
 
     def __init__(self, fn, at: int, when=None, key=None):
         self.fn, self.at, self.when, self.key = fn, at, when, key
@@ -108,7 +117,7 @@ class Capture:
         import torch
         if self.when is None or self.when(args):
             if self.key is not None:
-                self.tally[self.key(args)] += 1
+                self.tally[self.key(args, kwargs)] += 1
             if self.n == self.at:
                 self.args = tuple(a.clone() if torch.is_tensor(a) else a
                                   for a in args)
@@ -646,6 +655,132 @@ def split_sweep(cases, x, r) -> dict:
     return sweep
 
 
+def paged_plan(args, kwargs):
+    """`paged_attention.plan` for one captured `paged_decode_attention`
+    call."""
+    from repro_torch.kernels import paged_attention
+    q, k_pages, page_table = args[0], args[3], args[5]
+    (b, h, d), (ps, kv) = q.shape, k_pages.shape[1:3]
+    max_pages = page_table.shape[1]
+    num_pages = kwargs.get("num_pages", 0)
+    walk = min(num_pages, max_pages) if num_pages else max_pages
+    return paged_attention.plan(b, kv, h // kv, d, ps, walk, q.dtype)
+
+
+def csr_plan(args, kwargs):
+    """`dsg_ffn.csr_plan` for one captured `dsg_ffn_csr` call."""
+    from repro_torch.kernels import dsg_ffn
+    x, wg, idx = args[0], args[1], args[4]
+    return dsg_ffn.csr_plan(x.shape[0], x.shape[1], wg.shape[1],
+                            idx.shape[1], kwargs.get("block", 128), x.dtype)
+
+
+def dense_ffn(args) -> dict:
+    """Device time of the dense SwiGLU at the CSR step's x through
+    torch.matmul: not the same function (every group of every lane), but
+    the yardstick that the sparse decode step has to beat on this card."""
+    import torch
+    import torch.nn.functional as F
+    x, wg, wu, wd = args[:4]
+
+    def fn():
+        return torch.matmul(F.silu(torch.matmul(x, wg))
+                            * torch.matmul(x, wu), wd)
+    ms, note = device_ms(fn)
+    return {"dense_ffn_ms": ms, "dense_ffn_span_ms": note["span_ms"],
+            "dense_ffn_call_ms": time_ms(fn), "dense_ffn_timing": note,
+            "dense_ffn_note": "not the same function: the dense SwiGLU "
+                              "silu(x@wg)*(x@wu)@wd through torch.matmul"}
+
+
+def csr_sweep(args, kwargs) -> dict:
+    """Phase 9 for the union CSR FFN on the captured bf16 step: device
+    time (and the gate/up and down kernels' own times) at gate/up cluster
+    sizes 1-8, the column-slice alternative (32 or 64 columns, no or a
+    small cluster) and down tiles of 64 and 128 columns at 1-8 group
+    splits, each output held against the plain version."""
+    import torch
+    from repro_torch.kernels import cuda_lib, dsg_ffn
+    x, wg, wu, wd, idx, counts = args[:6]
+    block = kwargs.get("block", 128)
+    (b, d), f, k = x.shape, wg.shape[1], idx.shape[1]
+    plan = csr_plan(args, kwargs)
+    want = dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts, block=block)
+    h = torch.empty((max(1, plan.max_union), b, block), dtype=x.dtype,
+                    device=x.device)
+    out = torch.empty_like(x)
+    stream = cuda_lib.stream(x.device)
+    rtol, atol = TOL[str(x.dtype)]
+    configs = ({(c, plan.slice, plan.tile, plan.splits) for c in (1, 2, 4, 8)}
+               | {(c, sl, plan.tile, plan.splits)
+                  for c, sl in ((1, 32), (1, 64), (2, 64), (4, 32))
+                  if sl <= block}
+               | {(plan.cluster, plan.slice, t, sp) for t in (64, 128)
+                  for sp in (1, 2, 4, 8) if d % t == 0})
+    by = {}
+    for c, sl, t, sp in sorted(configs):
+        ms, note = device_ms(lambda: cuda_lib.launch(
+            "repro_dsg_ffn_csr_union", x.data_ptr(), wg.data_ptr(),
+            wu.data_ptr(), wd.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+            h.data_ptr(), out.data_ptr(), b, d, f, k, block, plan.lanes, c,
+            sl, t, sp, stream))
+        if not torch.allclose(out.float(), want.float(), rtol=rtol,
+                              atol=atol):
+            err = float((out.float() - want.float()).abs().max())
+            fail(f"dsg_ffn_csr at cluster {c}, slice {sl}, tile {t}, "
+                 f"splits {sp} differs from its plain version (max abs "
+                 f"err {err})")
+        by[f"cluster {c} slice {sl} tile {t} splits {sp}"] = {
+            "ms": ms, "kernel_ns": note["kernel_ns"]}
+    print("[splits] dsg_ffn_csr (union): plan cluster "
+          f"{plan.cluster} slice {plan.slice} tile {plan.tile} splits "
+          f"{plan.splits}; device ms (gate/up + down ns) by config: "
+          + "; ".join(f"{n}: {r['ms']:.4f} "
+                      f"({'+'.join(map(str, r['kernel_ns']))})"
+                      for n, r in by.items()), flush=True)
+    return {"plan": plan._asdict(), "ms_by_config": by}
+
+
+def paged_sweep(args, kwargs) -> dict:
+    """Phase 9 for the split paged kernel on the captured bf16 step:
+    device time at 1, 2, 4 and 8 splits, each output held against the
+    plain version and each pool against the plain version's writes."""
+    import math
+    import torch
+    from repro_torch.kernels import cuda_lib, paged_attention
+    q, k_new, v_new, k_pages, v_pages, page_table, pos = args[:7]
+    window, num_pages = kwargs.get("window", 0), kwargs.get("num_pages", 0)
+    (b, h, d), (ps, kv) = q.shape, k_pages.shape[1:3]
+    max_pages = page_table.shape[1]
+    walk = min(num_pages, max_pages) if num_pages else max_pages
+    plan = paged_plan(args, kwargs)
+    want, k_want, v_want = paged_attention.paged_decode_plain(
+        q, k_new, v_new, k_pages.clone(), v_pages.clone(), page_table, pos,
+        window=window, num_pages=num_pages)
+    rtol, atol = TOL[str(q.dtype)]
+    stream = cuda_lib.stream(q.device)
+    by = {}
+    for splits in (1, 2, 4, 8):
+        kp, vp, out = k_pages.clone(), v_pages.clone(), torch.empty_like(q)
+        ms, _ = device_ms(lambda: cuda_lib.launch(
+            "repro_paged_decode_split", q.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv,
+            h // kv, d, ps, max_pages, walk, window, 1 / math.sqrt(d),
+            splits, stream))
+        if not (torch.allclose(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+                and torch.equal(kp, k_want) and torch.equal(vp, v_want)):
+            fail(f"paged_decode at {splits} splits differs from its plain "
+                 f"version")
+        by[splits] = ms
+    print(f"[splits] paged_decode (split): plan {plan.splits} splits "
+          f"({plan.blocks} blocks); device ms by splits "
+          + ", ".join(f"{sp}: {ms:.4f}" for sp, ms in by.items()),
+          flush=True)
+    return {"plan": plan.splits, "ms_by_splits": by}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -695,18 +830,26 @@ def main() -> int:
                "drs_project": (drs_search.drs_project, "drs_project"),
                "drs_scores": (drs_search.drs_scores, "drs_scores")}
     drs = ("drs_project", "drs_scores")
-    project_paths = ("gemv", "tc", "simt")
     lanes = eng_kw["n_slots"]
     captures, refresh = {}, {}
 
-    def project_path(args):
+    def project_path(args, kwargs=None):
         (m, d), k = args[0].shape, args[1].shape[0]
         return drs_search.project_plan(m, k, d, args[0].dtype).path
 
+    def paged_path(args, kwargs):
+        return paged_plan(args, kwargs).path
+
+    def csr_path(args, kwargs):
+        return csr_plan(args, kwargs).path
+
+    paths = {"drs_project": (project_path, ("gemv", "tc", "simt")),
+             "paged_decode": (paged_path, ("split", "serial")),
+             "dsg_ffn_csr": (csr_path, ("union", "lanes"))}
     for name, (_, op) in kernels.items():
         at = cfg.n_layers * CAPTURE_STEP if name not in drs else 0
         captures[name] = Capture(getattr(ops, op), at, key=(
-            project_path if name == "drs_project" else None))
+            paths[name][0] if name in paths else None))
         wrapped = captures[name]
         if name in drs:
             # the DRS kernels run at two shapes: M = the prompt bucket at
@@ -715,16 +858,16 @@ def main() -> int:
                 captures[name], 0, when=lambda a: a[0].shape[0] == lanes)
         setattr(ops, op, wrapped)
     try:
-        for wrapper, _ in kernels.values():
+        for name, (wrapper, _) in kernels.items():
             wrapper.launches = 0
-        for p in project_paths:
-            setattr(drs_search.drs_project, f"launches_{p}", 0)
+            for p in paths.get(name, (None, ()))[1]:
+                setattr(wrapper, f"launches_{p}", 0)
         stats = run_workload(cfg, model, dsg,
                              mixed_requests(cfg.vocab, 8, seed=SEED),
                              **eng_kw)
         launches = {n: w.launches for n, (w, _) in kernels.items()}
-        by_path = {p: getattr(drs_search.drs_project, f"launches_{p}")
-                   for p in project_paths}
+        by_path = {n: {p: getattr(kernels[n][0], f"launches_{p}")
+                       for p in ps} for n, (_, ps) in paths.items()}
     finally:
         for name, (_, op) in kernels.items():
             setattr(ops, op, captures[name].fn)
@@ -745,8 +888,8 @@ def main() -> int:
             "dsg_ffn_csr": cfg.n_layers * stats["steps"],
             "drs_project": sum(by_shape.values()),
             "drs_scores": sum(by_shape.values())}
-    print(f"[serve] launches {launches} (expected {want}); drs_project by "
-          f"path {by_path}", flush=True)
+    print(f"[serve] launches {launches} (expected {want}); by path "
+          f"{by_path}", flush=True)
     for name in kernels:
         if launches[name] != want[name] or not launches[name]:
             fail(f"{name} launched {launches[name]} times on the serve "
@@ -759,17 +902,23 @@ def main() -> int:
         if got != by_shape or refresh[name].args is None:
             fail(f"{name} launched {got} times by shape, expected "
                  f"{by_shape}")
-    # each call took the path its shape plans: the admission shape the
-    # wgmma tiles, the refresh shape the GEMV
-    planned = {p: captures["drs_project"].tally[p] for p in project_paths}
-    if by_path != planned:
-        fail(f"drs_project launched {by_path} by path on the serve run, "
-             f"its shapes plan {planned}")
+    # each call took the path its shape plans: drs_project's admission
+    # shape the wgmma tiles and its refresh shape the GEMV; every paged
+    # step the split kernel and every CSR FFN step the union kernels
+    for name, (_, ps) in paths.items():
+        planned = {p: captures[name].tally[p] for p in ps}
+        if by_path[name] != planned:
+            fail(f"{name} launched {by_path[name]} by path on the serve "
+                 f"run, its shapes plan {planned}")
     for cap, path in ((captures["drs_project"], "tc"),
                       (refresh["drs_project"], "gemv")):
         if project_path(cap.args) != path:
             fail(f"drs_project at x {list(cap.args[0].shape)} plans "
                  f"{project_path(cap.args)}, not {path}")
+    for name, path in (("paged_decode", "split"), ("dsg_ffn_csr", "union")):
+        if by_path[name][path] != launches[name]:
+            fail(f"{name} took {by_path[name]} by path on the serve run; "
+                 f"every launch must take the {path} path")
 
     # 4. where the device time goes in a short serve run
     prof = profile_serve(cfg, model, dsg, eng_kw)
@@ -822,9 +971,18 @@ def main() -> int:
                 check_kernel(name, kernel, plain, refresh[name], cost,
                              library), launches=by_shape["refresh"])
         if name == "drs_project":
-            row["launches_by_path"] = by_path
+            row["launches_by_path"] = by_path[name]
             row["path"] = project_path(captures[name].args)
             row["refresh"]["path"] = project_path(refresh[name].args)
+        if name in ("paged_decode", "dsg_ffn_csr"):
+            cap = captures[name]
+            plan = (paged_plan if name == "paged_decode" else csr_plan)(
+                to_dtype(cap.args, torch.bfloat16), cap.kwargs)
+            row.update(launches_by_path=by_path[name], plan=plan._asdict())
+            row["path"] = plan.path
+        if name == "dsg_ffn_csr":
+            row.update(dense_ffn(to_dtype(captures[name].args,
+                                          torch.bfloat16)))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      **row})
@@ -834,6 +992,11 @@ def main() -> int:
                    f"{r['library_span_ms']:.4f} ms) / "
                    f"{r['library_call_ms']:.4f} ms a call")
             path = f" path {r['path']}," if "path" in r else ""
+            if "dense_ffn_ms" in r:
+                lib += (f", dense SwiGLU (not the same function) "
+                        f"{r['dense_ffn_ms']:.4f} ms (span "
+                        f"{r['dense_ffn_span_ms']:.4f} ms) / "
+                        f"{r['dense_ffn_call_ms']:.4f} ms a call")
             print(f"[kernel] {name} {label}{r['shapes']}:{path} "
                   f"{r['ms']:.4f} ms on the device ({r['span_ms']:.4f} ms "
                   f"first start to last end), {r['call_ms']:.4f} ms a "
@@ -861,6 +1024,11 @@ def main() -> int:
                                if n.startswith("flash")}
     next(r for r in rows if r["name"] == "drs_project")["split_sweep"] = {
         n: r for n, r in sweep.items() if n.startswith("drs")}
+    for name, fn in (("dsg_ffn_csr", csr_sweep),
+                     ("paged_decode", paged_sweep)):
+        cap = captures[name]
+        next(r for r in rows if r["name"] == name)["split_sweep"] = fn(
+            to_dtype(cap.args, torch.bfloat16), cap.kwargs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// mbarriers, TMA tensor loads and bulk copies into shared memory, wgmma
-// shared-memory descriptors and the m64n64k16 bf16 products (both operands
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
+// tensor loads and bulk copies into shared memory, wgmma shared-memory
+// descriptors and the m64n64k16 bf16 products (both operands
 // in shared memory, or A in registers), and the host-side tensor-map
-// encoder.  Raw PTX, no library: `flash_attention.cu` and `drs_search.cu`
-// build their kernels from these.
+// encoder; 16-byte cp.async copies and the cluster launch.  Raw PTX, no
+// library: the port's kernels build from these.
 //
 // Shared-memory tiles are 64 rows of 128 bytes (64 bf16), written by TMA
 // with CU_TENSOR_MAP_SWIZZLE_128B and read by wgmma through a descriptor
@@ -109,6 +109,35 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global into shared memory by the calling thread (cp.async,
+// cached in L2 only), completing with the thread's next commit group; both
+// addresses 16-byte aligned.  A thread that waits for its own groups sees
+// its own copies; other threads' copies need a barrier after the wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of the thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Eight bf16 values of a 16-byte load as f32.
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
 // ---- wgmma ------------------------------------------------------------
 // Descriptor of a 128-byte-swizzled operand tile in shared memory: start
 // address, leading and stride byte offsets (16-byte units), layout type 1
@@ -191,6 +220,39 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- host: launches ----------------------------------------------------
+// Launch `kernel` on `stream` with thread-block clusters of `cluster`
+// blocks (a cluster of 1 is a plain launch), raising the kernel's
+// dynamic shared-memory limit to `smem` first (static and dynamic shared
+// memory together may exceed 48 KB only so).  A refused launch's error is
+// returned and cleared, so that it is not reported again by a later call.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
+                                  int threads, dim3 cluster, size_t smem,
+                                  cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster.x;
+  attr.val.clusterDim.y = cluster.y;
+  attr.val.clusterDim.z = cluster.z;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 // ---- host: tensor maps -------------------------------------------------

@@ -39,8 +39,14 @@ _SIGNATURES = {
     # dtype, q, k_new, v_new, k_pages, v_pages, page_table, pos, out,
     # b, kv, g, d, ps, max_pages, walk, window, scale, threads, smem, stream
     "repro_paged_decode": [_I] + [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k_new, v_new, k_pages, v_pages, page_table, pos, out, b, kv, g, d,
+    # ps, max_pages, walk, window, scale, splits, stream
+    "repro_paged_decode_split": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     # dtype, x, wg, wu, wd, idx, counts, h, out, b, d, f, kslots, block, stream
     "repro_dsg_ffn_csr": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    # x, wg, wu, wd, idx, counts, h, out, b, d, f, kslots, block, lanes,
+    # cluster, slice, tile, splits, stream
+    "repro_dsg_ffn_csr_union": [_P] * 8 + [_I] * 10 + [_P],
     # dtype, x, r, out, m, k, d, stream
     "repro_drs_project": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     # x, r, out, m, k, d, shares, stream

@@ -4,8 +4,14 @@ plain PyTorch versions.
 dsg_ffn_csr (replacing the Pallas `repro/kernels/dsg_ffn.py::dsg_ffn_csr`),
 the group-CSR decode step: x (B, d) holds one token per lane, wg/wu
 (d, F), wd (F, d), idx (B, K) the lane's active group indices (ascending,
-padded past counts), counts (B,) -> (B, d) in x's dtype.  Only the listed
-groups' weight blocks are read.
+zero-padded past counts), counts (B,) -> (B, d) in x's dtype.  Only the
+listed groups' weight blocks are read.  Two paths, picked by `csr_plan`
+from dtype and shape (never on failure): in bf16 with up to 8 lanes the
+union path reads each group that some lane lists once for all lanes
+(gate/up by clusters that split d, the down projection by column tile and
+group split, each summed in rank order through distributed shared
+memory); f32, more lanes and other shapes take the per-lane kernels.
+`csr_union_plain` is the union path's decomposition in plain PyTorch.
 
 dsg_ffn (replacing the Pallas `repro/kernels/dsg_ffn.py::dsg_ffn`), the
 tile-masked FFN over multi-token rows: x (M, d), token_mask (M, F / block)
@@ -26,6 +32,8 @@ Bound on the H100: bytes (see the source note in the .cu file).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -33,7 +41,77 @@ from repro_torch.kernels import cuda_lib
 
 GATE_UP_THREADS = 512   # kGateUpThreads in dsg_ffn.cu; block must divide it
 TILE = 64               # kTM = kTN in dsg_ffn.cu: the tile kernel's cells
-SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 48 * 1024  # the lanes path's shared memory
+SM_COUNT = 132          # H100 SXM
+UNION_THREADS = 256     # kThreads: threads of the union path's blocks
+UNION_STAGES = 8        # kStages: ring slots a thread, 7 copies in flight
+UNION_MAX_LANES = 8
+UNION_MAX_GROUPS = 1024  # kMaxGroups
+# dynamic shared memory a union block may take: the 227 KB of one H100
+# block less the static shared memory of the union lists (8 KB and a few
+# words)
+UNION_SMEM_LIMIT = 232448 - 8 * UNION_MAX_GROUPS - 64
+
+
+class CsrPlan(NamedTuple):
+    path: str              # "union" or "lanes"
+    lanes: int             # union: lanes the kernels compute, a power of 2 >= B
+    max_union: int         # union entries the gate/up grid covers: min(G, B K)
+    cluster: int           # gate/up: blocks splitting d per (group, slice)
+    slice: int             # gate/up: columns of a group per block
+    tile: int              # down: output columns per block
+    splits: int            # down: group splits per column tile
+    gate_up_blocks: int
+    down_blocks: int
+
+
+def union_smem(lanes: int, d: int, block: int, max_union: int, cluster: int,
+               slice_: int, tile: int, splits: int) -> tuple:
+    """Dynamic shared memory of the union path's (gate/up, down) blocks, as
+    `csr_union` in dsg_ffn.cu sizes it."""
+    ring = max(UNION_THREADS * 16 * UNION_STAGES, UNION_THREADS * lanes * 32)
+    up = ring + 4 * lanes * (2 * slice_ + -(-d // (8 * cluster)) * 8)
+    down = (ring + 4 * lanes * tile
+            + 4 * (lanes + 1) * -(-max_union // splits) * block)
+    return up, down
+
+
+def _pow2_at_least(n: int, cap: int) -> int:
+    p = 1
+    while p < n and p < cap:
+        p *= 2
+    return p
+
+
+def csr_plan(b: int, d: int, f: int, k: int, block: int, dtype) -> CsrPlan:
+    """The path of the group-CSR FFN for x (b, d), wg (d, f), idx (b, k),
+    and the union path's cluster and split sizes.  The gate/up grid covers
+    min(G, b k) union entries with clusters that split d until the blocks
+    fill the SMs; the down projection takes 128-column tiles where 8
+    splits of them fill the SMs, else 64-column tiles, with group splits
+    until the blocks fill the SMs."""
+    groups = f // block if block > 0 else 0
+    max_union = min(groups, b * k)
+    lanes = _pow2_at_least(b, UNION_MAX_LANES)
+    slice_ = min(128, block)
+    tile = 128 if d % 128 == 0 and d // 128 * 8 >= SM_COUNT else 64
+    units = max(1, max_union) * max(1, block // slice_)
+    cluster = _pow2_at_least(-(-SM_COUNT // units), 8)
+    tiles = d // tile
+    splits = _pow2_at_least(-(-SM_COUNT // max(1, tiles)), 8)
+    plan = CsrPlan("union", lanes, max_union, cluster, slice_, tile, splits,
+                   max_union * (block // max(1, slice_)) * cluster,
+                   tiles * splits)
+    fits = (dtype == torch.bfloat16 and 1 <= b <= UNION_MAX_LANES
+            and block >= 32 and block % 32 == 0 and f % block == 0
+            and groups <= UNION_MAX_GROUPS and d >= 64 and d % 64 == 0
+            and max(union_smem(lanes, d, block, max_union, cluster, slice_,
+                               tile, splits)) <= UNION_SMEM_LIMIT)
+    if fits:
+        return plan
+    return plan._replace(path="lanes", lanes=b, cluster=1, splits=1,
+                         gate_up_blocks=b * k,
+                         down_blocks=b * -(-d // 64))
 
 
 def dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts, *, block: int = 128):
@@ -53,8 +131,57 @@ def dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts, *, block: int = 128):
     return torch.einsum("bm,bmd->bd", h, wd[cols].float()).to(x.dtype)
 
 
+def csr_union(idx, counts, groups: int):
+    """The ascending union of the groups the lanes list in slots
+    j < counts[b] (the zero padding adds nothing), and a (B, U) bool of
+    which lanes list each union group."""
+    b, k = idx.shape
+    valid = torch.arange(k, device=idx.device) < counts[:, None].long()
+    listed = torch.zeros((b, groups), dtype=torch.bool, device=idx.device)
+    lane = torch.arange(b, device=idx.device)[:, None].expand(b, k)
+    listed[lane[valid], idx.long()[valid]] = True
+    ulist = torch.nonzero(listed.any(dim=0)).flatten()
+    return ulist, listed[:, ulist]
+
+
+def csr_union_plain(x, wg, wu, wd, idx, counts, *, block: int = 128,
+                    cluster: int = 1, splits: int = 1):
+    """The union path's decomposition in plain PyTorch: the union of the
+    lanes' groups read once; gate and up as f32 partial products over d
+    split `cluster` ways (runs of a multiple of 8 rows), summed in rank
+    order; h rounded to x's dtype and zeroed for the lanes that do not list
+    a group; the down projection as f32 partials over `splits` contiguous
+    runs of the ascending union, summed in split order and rounded once.
+    Output columns are independent, so the kernel's column tiles change
+    nothing here."""
+    b, d = x.shape
+    ulist, lists = csr_union(idx, counts, wg.shape[1] // block)
+    n = ulist.numel()
+    if n == 0:
+        return torch.zeros_like(x)
+    cols = (ulist[:, None] * block
+            + torch.arange(block, device=x.device)).flatten()
+    xf = x.float()
+    per = -(-d // (8 * cluster)) * 8
+    g = u = 0.0
+    for r0 in range(0, d, per):
+        g = g + xf[:, r0:r0 + per] @ wg[r0:r0 + per, cols].float()
+        u = u + xf[:, r0:r0 + per] @ wu[r0:r0 + per, cols].float()
+    h = (F.silu(g) * u).to(x.dtype).float().reshape(b, n, block)
+    h = h * lists[..., None]
+    per = -(-n // splits)
+    out = 0.0
+    for u0 in range(0, n, per):
+        out = out + (h[:, u0:u0 + per].reshape(b, -1)
+                     @ wd[cols[u0 * block:(u0 + per) * block]].float())
+    return out.to(x.dtype)
+
+
 def dsg_ffn_csr(x, wg, wu, wd, idx, counts, *, block: int = 128):
-    """Launch the CUDA kernel (CUDA tensors only; raises otherwise)."""
+    """Launch the CUDA kernels that `csr_plan` picks (CUDA tensors only;
+    raises otherwise).  The union path raises unless x, wg, wu and wd
+    start on 16-byte boundaries.  `launches` counts every call; `launches_union`
+    and `launches_lanes` those of each path."""
     name = "dsg_ffn_csr"
     dev = cuda_lib.require_cuda(name, x, wg, wu, wd, idx, counts)
     code = cuda_lib.dtype_code(name, x, wg, wu, wd)
@@ -71,25 +198,42 @@ def dsg_ffn_csr(x, wg, wu, wd, idx, counts, *, block: int = 128):
         raise ValueError(f"{name}: inconsistent shapes x {tuple(x.shape)}, "
                          f"wg {tuple(wg.shape)}, wd {tuple(wd.shape)}, idx "
                          f"{tuple(idx.shape)}, block {block}")
-    if block > GATE_UP_THREADS or GATE_UP_THREADS % block:
-        raise ValueError(f"{name}: block {block} must divide "
-                         f"{GATE_UP_THREADS}")
-    if 4 * (d + 2 * GATE_UP_THREADS) > SMEM_LIMIT:
-        raise ValueError(f"{name}: d={d} needs more shared memory than "
-                         f"{SMEM_LIMIT} bytes")
-    h = torch.empty((b, k, block), dtype=x.dtype, device=dev)
+    p = csr_plan(b, d, f, k, block, x.dtype)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        cuda_lib.launch(
-            "repro_dsg_ffn_csr", code, x.data_ptr(), wg.data_ptr(),
-            wu.data_ptr(), wd.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-            h.data_ptr(), out.data_ptr(), b, d, f, k, block,
-            cuda_lib.stream(dev))
+    if p.path == "union":
+        cuda_lib.require_aligned16(name, x=x, wg=wg, wu=wu, wd=wd)
+        h = torch.empty((max(1, p.max_union), b, block), dtype=x.dtype,
+                        device=dev)
+        with torch.cuda.device(dev):
+            cuda_lib.launch(
+                "repro_dsg_ffn_csr_union", x.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), idx.data_ptr(),
+                counts.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f, k,
+                block, p.lanes, p.cluster, p.slice, p.tile, p.splits,
+                cuda_lib.stream(dev))
+        dsg_ffn_csr.launches_union += 1
+    else:
+        if block > GATE_UP_THREADS or GATE_UP_THREADS % block:
+            raise ValueError(f"{name}: block {block} must divide "
+                             f"{GATE_UP_THREADS}")
+        if 4 * (d + 2 * GATE_UP_THREADS) > SMEM_LIMIT:
+            raise ValueError(f"{name}: d={d} needs more shared memory than "
+                             f"{SMEM_LIMIT} bytes")
+        h = torch.empty((b, k, block), dtype=x.dtype, device=dev)
+        with torch.cuda.device(dev):
+            cuda_lib.launch(
+                "repro_dsg_ffn_csr", code, x.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), idx.data_ptr(),
+                counts.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f, k,
+                block, cuda_lib.stream(dev))
+        dsg_ffn_csr.launches_lanes += 1
     dsg_ffn_csr.launches += 1
     return out
 
 
 dsg_ffn_csr.launches = 0
+dsg_ffn_csr.launches_union = 0
+dsg_ffn_csr.launches_lanes = 0
 
 
 def check_tiles(m: int, f: int, block: int, bm: int, bf: int):

@@ -18,19 +18,64 @@ lies beyond the walk (an undersized bound, a caller bug) writes nothing and
 attends over the truncated window.  Where JAX returns new pools, the port
 writes into the pools it is given and returns them.
 
+Two kernels, picked by `plan` from dtype and shape (never on failure): in
+bf16 with D in {64, 128, 256}, g = H / Kv a power of two with
+128 <= g * D <= 1024 and pages of at most 32 rows, the split kernel
+shares each (lane, kv head)'s page walk among a cluster of S blocks and
+merges their (m, l, acc) in rank order; f32 and other shapes take the
+serial kernel.  `paged_split_plain` is the split decomposition in plain
+PyTorch.
+
 Bound on the H100: bytes (see the source note in the .cu file).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib
 
 NEG = -1e30
-THREADS = 128
-SMEM_LIMIT = 48 * 1024
+THREADS = 128           # the serial kernel's threads
+SMEM_LIMIT = 48 * 1024  # the serial kernel's shared memory
+SM_COUNT = 132          # H100 SXM
+SPLIT_THREADS = 128     # kSplitThreads in paged_attention.cu
+SPLIT_STAGES = 3        # kSplitStages: pages in flight per split
+SPLIT_MAX_EPT = 8       # kMaxEpt: g * D <= SPLIT_THREADS * SPLIT_MAX_EPT
+MAX_SPLITS = 8          # the portable cluster size
+SPLIT_SMEM_LIMIT = 232448
+
+
+class Plan(NamedTuple):
+    path: str    # "split" or "serial"
+    splits: int  # blocks per (lane, kv head), one cluster
+    blocks: int
+    smem: int    # dynamic shared memory of a block, bytes
+
+
+def split_smem(g: int, d: int, ps: int) -> int:
+    """The split kernel's shared memory: the page ring in bf16, then q,
+    the split's acc, the score tile and three per-head statistics in f32."""
+    return SPLIT_STAGES * 2 * ps * d * 2 + 4 * (2 * g * d + g * ps + 3 * g)
+
+
+def plan(b: int, kv: int, g: int, d: int, ps: int, walk: int, dtype) -> Plan:
+    """The kernel and its split count for one decode step of `walk` pages:
+    the walk is split until the blocks fill the SMs, at most 8 ways and
+    into runs of at least two pages of the walk."""
+    smem = split_smem(g, d, ps)
+    if (dtype != torch.bfloat16 or d not in (64, 128, 256) or g & (g - 1)
+            or not SPLIT_THREADS <= g * d <= SPLIT_THREADS * SPLIT_MAX_EPT
+            or not 1 <= ps <= 32 or smem > SPLIT_SMEM_LIMIT):
+        return Plan("serial", 1, b * kv,
+                    4 * (2 * g * d + 2 * ps * d + g * ps + 3 * g))
+    splits = 1
+    while (splits < MAX_SPLITS and 4 * splits <= walk
+           and b * kv * splits < SM_COUNT):
+        splits *= 2
+    return Plan("split", splits, b * kv * splits, smem)
 
 
 def _walk(num_pages: int, max_pages: int) -> int:
@@ -69,10 +114,70 @@ def paged_decode_plain(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
     return o.to(q.dtype), k_pages, v_pages
 
 
+def paged_split_plain(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
+                      window: int = 0, num_pages: int = 0, splits: int = 1):
+    """The split kernel's decomposition in plain PyTorch: each lane's walk
+    of n = min(pos // ps, walk - 1) + 1 pages cut into `splits` contiguous
+    runs of ceil(n / splits) pages (later runs may be empty); each run's
+    f32 (m, l, acc), m = -1e30, l = 0, acc = 0 for a run that holds no
+    unmasked position; merged in run order and divided by max(l, 1e-20).
+    Returns (o, k_pages, v_pages) with the pools updated in place."""
+    b, h, d = q.shape
+    ps, kv = k_pages.shape[1], k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    walk = _walk(num_pages, max_pages)
+    pt = page_table.long()
+    pos_l = pos.long()
+    lp = pos_l // ps
+    inside = lp < walk
+    lanes = torch.arange(b, device=q.device)
+    pp = pt[lanes, lp.clamp(max=max_pages - 1)]
+    off = pos_l % ps
+    k_pages[pp[inside], off[inside]] = k_new[inside].to(k_pages.dtype)
+    v_pages[pp[inside], off[inside]] = v_new[inside].to(v_pages.dtype)
+    scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    for lane in range(b):
+        p = int(pos_l[lane])
+        n = min(p // ps, walk - 1) + 1
+        per = -(-n // splits)
+        qf = q[lane].float()                                   # (H, D)
+        m_all, l_all, acc_all = [], [], []
+        for s in range(splits):
+            j0, j1 = min(n, s * per), min(n, s * per + per)
+            t = torch.arange(j0 * ps, j1 * ps, device=q.device)
+            k = k_pages[pt[lane, t // ps], t % ps].float()     # (T, Kv, D)
+            v = v_pages[pt[lane, t // ps], t % ps].float()
+            k = k.repeat_interleave(h // kv, 1)
+            v = v.repeat_interleave(h // kv, 1)
+            sc = torch.einsum("hd,thd->ht", qf, k) * scale
+            valid = t <= p
+            if window > 0:
+                valid &= t > p - window
+            sc = torch.where(valid, sc, NEG)
+            m = sc.amax(dim=-1) if t.numel() else torch.full(
+                (h,), NEG, device=q.device)
+            pr = torch.exp(sc - m[:, None]) * valid
+            m_all.append(m)
+            l_all.append(pr.sum(dim=-1))
+            acc_all.append(torch.einsum("ht,thd->hd", pr, v))
+        mx = torch.stack(m_all).amax(dim=0)
+        l_sum = acc = 0.0
+        for m, l_s, a in zip(m_all, l_all, acc_all):
+            w = torch.exp(m - mx)
+            l_sum = l_sum + l_s * w
+            acc = acc + a * w[:, None]
+        out[lane] = (acc / l_sum.clamp_min(1e-20)[:, None]).to(q.dtype)
+    return out, k_pages, v_pages
+
+
 def paged_decode(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
                  window: int = 0, num_pages: int = 0):
-    """Launch the CUDA kernel (CUDA tensors only; raises otherwise).
-    Returns (o, k_pages, v_pages) with the pools updated in place."""
+    """Launch the CUDA kernel that `plan` picks (CUDA tensors only; raises
+    otherwise).  The split kernel raises unless k_new, v_new and the pools
+    start on 16-byte boundaries.  Returns (o, k_pages, v_pages) with the
+    pools updated in place.  `launches` counts every call;
+    `launches_split` and `launches_serial` those of each kernel."""
     name = "paged_decode"
     dev = cuda_lib.require_cuda(name, q, k_new, v_new, k_pages, v_pages,
                                 page_table, pos)
@@ -94,20 +199,37 @@ def paged_decode(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
                          f"{tuple(page_table.shape)}, pos {tuple(pos.shape)}")
     g = h // kv
     max_pages = page_table.shape[1]
-    smem = 4 * (2 * g * d + 2 * ps * d + g * ps + 3 * g)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {smem} bytes of shared memory needed "
-                         f"(g={g}, ps={ps}, D={d}), limit {SMEM_LIMIT}")
+    walk = _walk(num_pages, max_pages)
+    p = plan(b, kv, g, d, ps, walk, q.dtype)
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        cuda_lib.launch(
-            "repro_paged_decode", code, q.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv, g,
-            d, ps, max_pages, _walk(num_pages, max_pages), window,
-            1.0 / math.sqrt(d), THREADS, smem, cuda_lib.stream(dev))
+    if p.path == "split":
+        cuda_lib.require_aligned16(name, k_new=k_new, v_new=v_new,
+                                   k_pages=k_pages, v_pages=v_pages)
+        with torch.cuda.device(dev):
+            cuda_lib.launch(
+                "repro_paged_decode_split", q.data_ptr(), k_new.data_ptr(),
+                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv,
+                g, d, ps, max_pages, walk, window, 1.0 / math.sqrt(d),
+                p.splits, cuda_lib.stream(dev))
+        paged_decode.launches_split += 1
+    else:
+        if p.smem > SMEM_LIMIT:
+            raise ValueError(f"{name}: {p.smem} bytes of shared memory "
+                             f"needed (g={g}, ps={ps}, D={d}), limit "
+                             f"{SMEM_LIMIT}")
+        with torch.cuda.device(dev):
+            cuda_lib.launch(
+                "repro_paged_decode", code, q.data_ptr(), k_new.data_ptr(),
+                v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv,
+                g, d, ps, max_pages, walk, window, 1.0 / math.sqrt(d),
+                THREADS, p.smem, cuda_lib.stream(dev))
+        paged_decode.launches_serial += 1
     paged_decode.launches += 1
     return out, k_pages, v_pages
 
 
 paged_decode.launches = 0
+paged_decode.launches_split = 0
+paged_decode.launches_serial = 0

@@ -23,8 +23,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import (drs_search, dsg_ffn, ops,  # noqa: E402
-                                 paged_attention)
+from repro_torch.kernels import (cuda_lib, drs_search, dsg_ffn,  # noqa: E402
+                                 ops, paged_attention)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving.dsg_runtime import DSGServingConfig  # noqa: E402
@@ -80,20 +80,38 @@ def _paged_inputs(rng, b, h, kv, d, ps, max_pages, pos, dtype, dev,
             torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev))
 
 
+def _path_launches(wrapper, paths):
+    return {p: getattr(wrapper, f"launches_{p}") for p in paths}
+
+
 def _run_paged(fn, args, **kw):
     q, kn, vn, kp, vp, pt, pos = args
     kp, vp = kp.clone(), vp.clone()
     return fn(q, kn, vn, kp, vp, pt, pos, **kw)
 
 
+PAGED_PATHS = ("split", "serial")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps", [8, 16])
-@pytest.mark.parametrize("h,kv,d", [(4, 2, 16), (2, 2, 16), (16, 8, 128)])
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 16), (2, 2, 16), (16, 8, 128),
+                                    (16, 1, 128)])
 def test_paged_decode_on_card(cuda, dtype, ps, h, kv, d):
+    """bf16 at 64-, 128- or 256-wide heads in query groups of 1-8 takes the
+    split kernel, the rest (f32, D 16, 16 query heads a kv head) the
+    serial kernel; each call adds one launch to its kernel's count."""
     pos = [0, ps - 1, ps, 2 * ps + 3, 5 * ps - 1]
     args = _paged_inputs(np.random.default_rng(0), len(pos), h, kv, d, ps,
                          6, pos, dtype, cuda)
+    want = ("split" if dtype == torch.bfloat16 and d == 128 and h // kv <= 8
+            else "serial")
+    assert paged_attention.plan(len(pos), kv, h // kv, d, ps, 6,
+                                dtype).path == want
+    before = _path_launches(paged_attention.paged_decode, PAGED_PATHS)
     o, kp, vp = _run_paged(paged_attention.paged_decode, args)
+    after = _path_launches(paged_attention.paged_decode, PAGED_PATHS)
+    assert after == {q: n + (q == want) for q, n in before.items()}
     ow, kw, vw = _run_paged(paged_attention.paged_decode_plain, args)
     _close(o, ow, dtype)
     assert torch.equal(kp, kw) and torch.equal(vp, vw)
@@ -113,11 +131,18 @@ def test_paged_decode_window_walk_and_mirrors_on_card(cuda, window,
     assert torch.equal(kp, kw_) and torch.equal(vp, vw)
 
 
+CSR_PATHS = ("union", "lanes")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d,f,block,k", [(3, 16, 64, 16, 2),
                                            (4, 64, 256, 64, 4),
-                                           (4, 2048, 8192, 128, 32)])
+                                           (4, 2048, 8192, 128, 32),
+                                           (9, 256, 1024, 128, 4)])
 def test_dsg_ffn_csr_on_card(cuda, dtype, b, d, f, block, k):
+    """bf16 with up to 8 lanes, blocks of a multiple of 32 and d of a
+    multiple of 64 takes the union kernels, the rest the per-lane kernels;
+    each call adds one launch to its path's count."""
     rng = np.random.default_rng(2)
     g = f // block
     x = _rand(rng, (b, d), dtype, cuda)
@@ -132,17 +157,173 @@ def test_dsg_ffn_csr_on_card(cuda, dtype, b, d, f, block, k):
                                                       replace=False))
         idx[lane, counts[lane]:] = rng.integers(0, g, k - counts[lane])
     idx_t, cnt_t = (torch.from_numpy(a).to(cuda) for a in (idx, counts))
+    want = ("union" if dtype == torch.bfloat16 and b <= 8 and block % 32 == 0
+            and d % 64 == 0 else "lanes")
+    assert dsg_ffn.csr_plan(b, d, f, k, block, dtype).path == want
+    before = _path_launches(dsg_ffn.dsg_ffn_csr, CSR_PATHS)
     got = dsg_ffn.dsg_ffn_csr(x, wg, wu, wd, idx_t, cnt_t, block=block)
-    want = dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx_t, cnt_t,
-                                     block=block)
-    _close(got, want, dtype)
+    after = _path_launches(dsg_ffn.dsg_ffn_csr, CSR_PATHS)
+    assert after == {q: n + (q == want) for q, n in before.items()}
+    _close(got, dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx_t, cnt_t,
+                                          block=block), dtype)
+
+
+def _csr_case(rng, case, b=4, k=32, g=64):
+    """idx/counts of one CSR sweep case: "padded" (short lists zero-padded,
+    group 0 listed by no lane), "empty" (a lane with count 0), "full"
+    (counts equal to K), "mirrored" (lanes 1..3 copy lane 0) and
+    "disjoint" (no group shared)."""
+    idx = np.zeros((b, k), np.int32)
+    counts = np.full(b, k, np.int32)
+    if case == "disjoint":
+        per = g // b
+        for lane in range(b):
+            n = min(k, per)
+            idx[lane, :n] = np.arange(lane * per, lane * per + n)
+            counts[lane] = n
+        return idx, counts
+    for lane in range(b):
+        n = {"padded": min(k // 2 + lane, k, g - 1),
+             "empty": 0 if lane == 1 else k}.get(case, k)
+        idx[lane, :n] = np.sort(rng.choice(np.arange(1, g), n, replace=False))
+        counts[lane] = n
+    if case == "mirrored":
+        idx[1:], counts[1:] = idx[0], counts[0]
+    return idx, counts
+
+
+def _csr_weights(rng, b, d, f, dtype, dev):
+    return (_rand(rng, (b, d), dtype, dev),
+            _rand(rng, (d, f), dtype, dev, 1 / math.sqrt(d)),
+            _rand(rng, (d, f), dtype, dev, 1 / math.sqrt(d)),
+            _rand(rng, (f, d), dtype, dev, 1 / math.sqrt(f)))
+
+
+@pytest.mark.parametrize("case", ["padded", "empty", "full", "mirrored",
+                                  "disjoint"])
+def test_dsg_ffn_csr_union_sweep_on_card(cuda, case):
+    """The union path at the full-width shape on each sweep case: one
+    launch on the union path, equal to the plain version and to the union
+    decomposition; a zero-padded slot never adds group 0."""
+    rng = np.random.default_rng(20)
+    bf = torch.bfloat16
+    x, wg, wu, wd = _csr_weights(rng, 4, 2048, 8192, bf, cuda)
+    idx, counts = (torch.from_numpy(a).to(cuda)
+                   for a in _csr_case(rng, case))
+    p = dsg_ffn.csr_plan(4, 2048, 8192, 32, 128, bf)
+    assert p.path == "union"
+    before = _path_launches(dsg_ffn.dsg_ffn_csr, CSR_PATHS)
+    got = dsg_ffn.dsg_ffn_csr(x, wg, wu, wd, idx, counts)
+    after = _path_launches(dsg_ffn.dsg_ffn_csr, CSR_PATHS)
+    assert after == {q: n + (q == "union") for q, n in before.items()}
+    _close(got, dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts), bf)
+    _close(got, dsg_ffn.csr_union_plain(x, wg, wu, wd, idx, counts,
+                                        cluster=p.cluster, splits=p.splits),
+           bf)
+    if case == "empty":
+        assert not got[1].any()
+
+
+def _csr_union_launch(x, wg, wu, wd, idx, counts, block, cluster, splits,
+                      tile):
+    b, d = x.shape
+    f, k = wg.shape[1], idx.shape[1]
+    lanes = dsg_ffn.csr_plan(b, d, f, k, block, x.dtype).lanes
+    h = torch.empty((max(1, min(f // block, b * k)), b, block),
+                    dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    cuda_lib.launch("repro_dsg_ffn_csr_union", x.data_ptr(), wg.data_ptr(),
+                    wu.data_ptr(), wd.data_ptr(), idx.data_ptr(),
+                    counts.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f,
+                    k, block, lanes, cluster, min(128, block), tile, splits,
+                    cuda_lib.stream(x.device))
+    return out
+
+
+@pytest.mark.parametrize("cluster,splits,tile", [(1, 1, 64), (2, 8, 128),
+                                                 (8, 4, 64), (4, 2, 128)])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_dsg_ffn_csr_union_sizes_on_card(cuda, cluster, splits, tile, b):
+    """Cluster and split sizes around the plan's, and lane counts that pad
+    to 1, 4 and 8: every one equals the plain version."""
+    rng = np.random.default_rng(21)
+    bf = torch.bfloat16
+    x, wg, wu, wd = _csr_weights(rng, b, 1024, 4096, bf, cuda)
+    idx, counts = (torch.from_numpy(a[:b]).to(cuda)
+                   for a in _csr_case(rng, "padded", b=8, k=16, g=32))
+    got = _csr_union_launch(x, wg, wu, wd, idx, counts, 128, cluster,
+                            splits, tile)
+    _close(got, dsg_ffn.dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts), bf)
+
+
+@pytest.mark.parametrize("case", ["window", "undersized", "mirrored",
+                                  "empty_splits", "deep"])
+def test_paged_decode_split_sweep_on_card(cuda, case):
+    """The split kernel at the full-width head shape (16 heads, 8 kv heads,
+    D 128, pages of 16) on each sweep case, against the plain version and
+    the split decomposition; the pools equal the plain version's writes
+    exactly (an undersized walk writes nothing)."""
+    bf = torch.bfloat16
+    pos = {"empty_splits": [0, 3, 17, 20],
+           "deep": [255, 130, 511, 64]}.get(case, [5, 100, 250, 31])
+    args = _paged_inputs(np.random.default_rng(23), 4, 16, 8, 128, 16, 32,
+                         pos, bf, cuda,
+                         mirror=(3,) if case == "mirrored" else ())
+    kw = {"window": dict(window=40),
+          "undersized": dict(num_pages=4)}.get(case, dict(num_pages=32))
+    walk = kw.get("num_pages", 32)
+    p = paged_attention.plan(4, 8, 2, 128, 16, walk, bf)
+    assert p.path == "split"
+    if case == "empty_splits":
+        assert p.splits > 2
+    before = _path_launches(paged_attention.paged_decode, PAGED_PATHS)
+    o, kp, vp = _run_paged(paged_attention.paged_decode, args, **kw)
+    after = _path_launches(paged_attention.paged_decode, PAGED_PATHS)
+    assert after == {q: n + (q == "split") for q, n in before.items()}
+    ow, kw_, vw = _run_paged(paged_attention.paged_decode_plain, args, **kw)
+    _close(o, ow, bf)
+    assert torch.equal(kp, kw_) and torch.equal(vp, vw)
+    os_, _, _ = _run_paged(paged_attention.paged_split_plain, args,
+                           splits=p.splits, **kw)
+    _close(o, os_, bf)
+
+
+def _paged_split_launch(args, splits, window=0, num_pages=0):
+    q, kn, vn, kp, vp, pt, pos = args
+    kp, vp = kp.clone(), vp.clone()
+    b, h, d = q.shape
+    ps, kv = kp.shape[1], kp.shape[2]
+    max_pages = pt.shape[1]
+    walk = min(num_pages, max_pages) if num_pages else max_pages
+    out = torch.empty_like(q)
+    cuda_lib.launch("repro_paged_decode_split", q.data_ptr(), kn.data_ptr(),
+                    vn.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
+                    pos.data_ptr(), out.data_ptr(), b, kv, h // kv, d, ps,
+                    max_pages, walk, window, 1 / math.sqrt(d), splits,
+                    cuda_lib.stream(q.device))
+    return out, kp, vp
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("h,kv,d,ps", [(16, 8, 128, 16), (8, 8, 128, 8),
+                                       (8, 2, 64, 16), (4, 2, 256, 32)])
+def test_paged_decode_split_sizes_on_card(cuda, splits, h, kv, d, ps):
+    """Every split count at head shapes the split kernel takes (g 2, 1 and
+    4; D 64, 128, 256; pages of 8, 16 and 32 rows), lanes with fewer pages
+    than splits included."""
+    bf = torch.bfloat16
+    pos = [0, ps + 1, 5 * ps - 1, 9 * ps + 2]
+    args = _paged_inputs(np.random.default_rng(24), 4, h, kv, d, ps, 12, pos,
+                         bf, cuda)
+    assert paged_attention.plan(4, kv, h // kv, d, ps, 12, bf).path == "split"
+    o, kp, vp = _paged_split_launch(args, splits, window=3 * ps)
+    ow, kw_, vw = _run_paged(paged_attention.paged_decode_plain, args,
+                             window=3 * ps)
+    _close(o, ow, bf)
+    assert torch.equal(kp, kw_) and torch.equal(vp, vw)
 
 
 PROJECT_PATHS = ("gemv", "tc", "simt")
-
-
-def _path_launches(wrapper, paths):
-    return {p: getattr(wrapper, f"launches_{p}") for p in paths}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -247,8 +428,9 @@ def test_flash_attention_on_card(cuda, dtype, bh, s, t, d, causal, bq, bk):
 
 
 def test_tc_kernels_repeat_bitwise_on_card(cuda):
-    """The split-KV flash kernel and both bf16 drs_project paths merge
-    their splits in a fixed order: two calls give the same bits."""
+    """The split-KV flash kernel, both bf16 drs_project paths, the union
+    CSR FFN and the split paged step sum their splits in a fixed order:
+    two calls give the same bits."""
     rng = np.random.default_rng(9)
     bf = torch.bfloat16
     q = _rand(rng, (16, 256, 128), bf, cuda)
@@ -262,6 +444,18 @@ def test_tc_kernels_repeat_bitwise_on_card(cuda):
         x = _rand(rng, (m, 2048), bf, cuda)
         assert torch.equal(drs_search.drs_project(x, r),
                            drs_search.drs_project(x, r))
+    x, wg, wu, wd = _csr_weights(rng, 4, 2048, 8192, bf, cuda)
+    idx, counts = (torch.from_numpy(a).to(cuda)
+                   for a in _csr_case(rng, "padded"))
+    assert dsg_ffn.csr_plan(4, 2048, 8192, 32, 128, bf).path == "union"
+    assert torch.equal(dsg_ffn.dsg_ffn_csr(x, wg, wu, wd, idx, counts),
+                       dsg_ffn.dsg_ffn_csr(x, wg, wu, wd, idx, counts))
+    args = _paged_inputs(rng, 4, 16, 8, 128, 16, 32, [5, 100, 250, 31], bf,
+                         cuda)
+    assert paged_attention.plan(4, 8, 2, 128, 16, 16, bf).splits > 1
+    first = _run_paged(paged_attention.paged_decode, args, num_pages=16)
+    second = _run_paged(paged_attention.paged_decode, args, num_pages=16)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
 def test_tile_kernels_refuse_what_they_cannot_take(cuda):
@@ -292,9 +486,10 @@ def _unaligned(t):
 
 
 def test_tc_kernels_refuse_unaligned_on_card(cuda):
-    """The TMA and bulk-copy paths raise on an operand off a 16-byte
-    boundary, and launch nothing; f32 takes the SIMT kernels at any
-    alignment."""
+    """The TMA, bulk-copy and 16-byte cp.async paths (flash, drs_project,
+    the union CSR FFN, the split paged step) raise on an operand off a
+    16-byte boundary, and launch nothing; f32 takes the SIMT kernels at
+    any alignment."""
     rng = np.random.default_rng(10)
     bf = torch.bfloat16
     q = _rand(rng, (2, 64, 128), bf, cuda)
@@ -309,6 +504,23 @@ def test_tc_kernels_refuse_unaligned_on_card(cuda):
             drs_search.drs_project(*args)
     assert (fa.flash_attention.launches,
             drs_search.drs_project.launches) == before
+    xc, wg, wu, wd = _csr_weights(rng, 4, 256, 1024, bf, cuda)
+    idx, counts = (torch.from_numpy(a).to(cuda)
+                   for a in _csr_case(rng, "padded", k=4, g=8))
+    q, kn, vn, kp, vp, pt, pos = _paged_inputs(rng, 2, 16, 8, 128, 16, 4,
+                                               [3, 20], bf, cuda)
+    before = (dsg_ffn.dsg_ffn_csr.launches,
+              paged_attention.paged_decode.launches)
+    for args in ((xc, _unaligned(wg), wu, wd), (xc, wg, wu, _unaligned(wd)),
+                 (_unaligned(xc), wg, wu, wd)):
+        with pytest.raises(ValueError, match="16-byte"):
+            dsg_ffn.dsg_ffn_csr(*args, idx, counts)
+    for bad in ((q, _unaligned(kn), vn, kp, vp),
+                (q, kn, vn, kp, _unaligned(vp))):
+        with pytest.raises(ValueError, match="16-byte"):
+            paged_attention.paged_decode(*bad, pt, pos)
+    assert (dsg_ffn.dsg_ffn_csr.launches,
+            paged_attention.paged_decode.launches) == before
     x32, r32 = _unaligned(x.float()), _unaligned(r.float())
     _close(drs_search.drs_project(x32, r32),
            drs_search.drs_project_plain(x32, r32), torch.float32)
