@@ -16,9 +16,11 @@ result line):
             to 0 just before the run and read just after; each kernel must
             have launched once per layer per decode step (paged decode,
             group-CSR FFN) or per admission and refresh step (DRS search),
-            and every launch of drs_project, paged decode and the CSR FFN
-            must have taken the path its shape plans: at this width in
-            bf16, the split paged kernel and the union CSR kernels.
+            and every launch of drs_project, drs_scores, paged decode and
+            the CSR FFN must have taken the path its shape plans: at this
+            width in bf16, the split paged kernel, the union CSR kernels,
+            and for both DRS kernels the wgmma tiles at every admission
+            and the GEMV at every refresh step.
 4. profile — a short full-width serve run under torch.profiler: the
             device's busy share and device time by kernel.
 5. check  — the smoke model's greedy streams on the card (kernels) equal
@@ -38,15 +40,18 @@ result line):
             CUDA-event time around one call, which also holds the host's
             dispatch while the device waits.  The CSR FFN's row also
             times the dense SwiGLU at the same x through torch.matmul: not
-            the same function, but the yardstick DSG decode has to beat.
+            the same function, but the yardstick DSG decode has to beat;
+            drs_scores' rows time torch.matmul(fx, fw) alone beside it.
 7. dsg_ffn — the tile-masked DSG FFN through `ops.dsg_ffn_full` (DRS
             project -> scores -> per-row top-k mask -> tile-masked FFN) on
             layer 0's FFN input of one 256-token prompt with layer 0's
             weights and DRS state (gamma 0.5, block 128, bm = bf = 128):
-            each of the three kernels launches once; the composition, the
-            FFN kernel with the per-token, the batch-shared (row 0 for every
-            row) and an all-zero mask, and the tile-skip fractions of the
-            first two.
+            each of the three kernels launches once and the bf16 FFN must
+            take the tensor-core path; the composition, the FFN kernel with
+            the per-token, the batch-shared (row 0 for every row) and an
+            all-zero mask, the tile-skip fractions of the first two (of the
+            reference's cells and of the plan's), and the dense SwiGLU at
+            the same x as a yardstick that is not the same function.
 8. flash  — `ops.flash_attention` on layer 0's q/k/v after RoPE (kv heads
             repeated to 16, folded to (16, S, D)): (a) a 256-token prompt,
             S = T = 256, causal; (b) the last 256 queries of a 2048-token
@@ -60,9 +65,13 @@ result line):
             (a) and (b), drs_project at admission; the union CSR FFN's
             gate/up cluster and slice and its down tile and splits, and
             the split paged kernel at 1, 2, 4 and 8 splits, on the serve
-            run's captured inputs), through the C entry points (no wrapper
-            counts these launches), each output held against the plain
-            version: the measurement behind the plans.
+            run's captured inputs; the drs_scores GEMV at 1-8 column
+            slices of a group and its wgmma tiles at 1, 2 and all row tiles
+            a block; the tile-masked FFN at 64- and 128-row gate/up blocks
+            and 1-8 F splits of the down projection, on phase 7's inputs),
+            through the C entry points (no wrapper counts these launches),
+            each output held against the plain version: the measurement
+            behind the plans.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -394,8 +403,8 @@ def smoke_streams(device, dsg_serving):
     cfg = configs.get_smoke_config(ARCH)
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(SEED)
-    model = api.init_model(cfg, generator=gen)
-    dsg = api.init_dsg(model, cfg, generator=gen)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
     model = model.to(device)
     dsg = {k: v.to(device) for k, v in dsg.items()}
     eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
@@ -451,7 +460,8 @@ def masks_agree(scores, got, want, keep, dtype) -> int:
 
 def dsg_ffn_phase(cfg, model, dsg, x):
     """Phase 7: `ops.dsg_ffn_full` at full width; returns the kernels-line
-    row of the tile-masked FFN kernel."""
+    row of the tile-masked FFN kernel and the kernels' per-token mask.
+    Fails unless the bf16 FFN took the tensor-core path."""
     import torch
     from repro_torch.core import drs
     from repro_torch.kernels import drs_search, dsg_ffn, ops
@@ -463,15 +473,25 @@ def dsg_ffn_phase(cfg, model, dsg, x):
     wrappers = {"drs_project": drs_search.drs_project,
                 "drs_scores": drs_search.drs_scores,
                 "dsg_ffn": dsg_ffn.dsg_ffn}
+    tile_paths = ("tc", "simt")
     for wrapper in wrappers.values():
         wrapper.launches = 0
+    for p in tile_paths:
+        setattr(dsg_ffn.dsg_ffn, f"launches_{p}", 0)
     y = ops.dsg_ffn_full(x, *w, r, fw, gamma=gamma, block=block)
     torch.cuda.synchronize()
     launches = {n: wr.launches for n, wr in wrappers.items()}
+    by_path = {p: getattr(dsg_ffn.dsg_ffn, f"launches_{p}")
+               for p in tile_paths}
+    plan = dsg_ffn.tile_plan(*x.shape, w[0].shape[1], block, x.dtype)
     print(f"[dsg_ffn] ops.dsg_ffn_full x {list(x.shape)} -> {list(y.shape)}; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, the FFN by path {by_path} (plan "
+          f"{plan._asdict()})", flush=True)
     if any(n != 1 for n in launches.values()):
         fail(f"ops.dsg_ffn_full launched {launches}, expected one each")
+    if x.dtype == torch.bfloat16 and (plan.path, by_path["tc"]) != ("tc", 1):
+        fail(f"the bf16 tile-masked FFN did not take the tensor-core path: "
+             f"plan {plan.path}, launches by path {by_path}")
     if y.shape != x.shape or not torch.isfinite(y.float()).all():
         fail("ops.dsg_ffn_full gave a wrong shape or non-finite values")
 
@@ -507,9 +527,13 @@ def dsg_ffn_phase(cfg, model, dsg, x):
     shared = mask[:1].expand_as(mask).contiguous()
     skip = {n: dsg_ffn.tile_skip_fraction(mk, 128, 128, block)
             for n, mk in (("per_token", mask), ("shared", shared))}
+    plan_skip = {n: dsg_ffn.cell_skip_fraction(mk, plan.cell_rows,
+                                               plan.cell_cols, block)
+                 for n, mk in (("per_token", mask), ("shared", shared))}
     print(f"[dsg_ffn] tile-skip fraction (bm = bf = 128): per-token mask "
-          f"{skip['per_token']}, batch-shared mask {skip['shared']}",
-          flush=True)
+          f"{skip['per_token']}, batch-shared mask {skip['shared']}; of the "
+          f"plan's {plan.cell_rows} x {plan.cell_cols} cells: "
+          f"{plan_skip['per_token']}, {plan_skip['shared']}", flush=True)
     rows = {}
     for n, mk in (("per_token", mask), ("shared", shared)):
         rows[n] = check_kernel(f"dsg_ffn ({n} mask)", dsg_ffn.dsg_ffn,
@@ -522,12 +546,18 @@ def dsg_ffn_phase(cfg, model, dsg, x):
               f" ms by {rows[n]['bound_by']}), max abs err bf16 "
               f"{rows[n]['max_abs_err']:.3g} f32 "
               f"{rows[n]['max_abs_err_f32']:.3g}", flush=True)
+    rows["per_token"].update(dense_ffn((x, *w)))
+    print(f"[dsg_ffn] dense SwiGLU at the same x (not the same function) "
+          f"{rows['per_token']['dense_ffn_ms']:.4f} ms on the device",
+          flush=True)
     return {"name": "dsg_ffn", "route": "cuda",
             "source": "src/repro_torch/csrc/dsg_ffn.cu",
             "replaces": "src/repro/kernels/dsg_ffn.py:56",
-            "launches": launches["dsg_ffn"], **rows["per_token"],
+            "launches": launches["dsg_ffn"], "launches_by_path": by_path,
+            "path": plan.path, "plan": plan._asdict(), **rows["per_token"],
             "shared_mask": rows["shared"],
-            "tile_skip_fraction": skip}
+            "tile_skip_fraction": skip,
+            "plan_cell_skip_fraction": plan_skip}, mask
 
 
 def flash_phase(cases):
@@ -675,6 +705,27 @@ def csr_plan(args, kwargs):
                             idx.shape[1], kwargs.get("block", 128), x.dtype)
 
 
+def scores_plan(args, kwargs):
+    """`drs_search.scores_plan` for one captured `drs_scores` call."""
+    from repro_torch.kernels import drs_search
+    (m, k), f = args[0].shape, args[1].shape[1]
+    return drs_search.scores_plan(m, k, f, kwargs.get("block", 128),
+                                  args[0].dtype)
+
+
+def matmul_yardstick(args) -> dict:
+    """Device time of torch.matmul(fx, fw) alone on the scores' inputs:
+    not the same function (no ReLU, no group sums, and it writes the
+    (M, F) product), but the one library call that does its product."""
+    import torch
+    fx, fw = args[:2]
+    ms, note = device_ms(lambda: torch.matmul(fx, fw))
+    return {"matmul_ms": ms, "matmul_span_ms": note["span_ms"],
+            "matmul_timing": note,
+            "matmul_note": "not the same function: torch.matmul(fx, fw) "
+                           "alone"}
+
+
 def dense_ffn(args) -> dict:
     """Device time of the dense SwiGLU at the CSR step's x through
     torch.matmul: not the same function (every group of every lane), but
@@ -734,6 +785,86 @@ def csr_sweep(args, kwargs) -> dict:
             "ms": ms, "kernel_ns": note["kernel_ns"]}
     print("[splits] dsg_ffn_csr (union): plan cluster "
           f"{plan.cluster} slice {plan.slice} tile {plan.tile} splits "
+          f"{plan.splits}; device ms (gate/up + down ns) by config: "
+          + "; ".join(f"{n}: {r['ms']:.4f} "
+                      f"({'+'.join(map(str, r['kernel_ns']))})"
+                      for n, r in by.items()), flush=True)
+    return {"plan": plan._asdict(), "ms_by_config": by}
+
+
+def scores_sweep(refresh_args, admission_args, block) -> dict:
+    """Phase 9 for drs_scores on the serve run's captured bf16 inputs:
+    the GEMV at the refresh shape with 1, 2, 4 and 8 column slices of a
+    group, and the wgmma tiles at the admission shape with one 64-row tile
+    a block (a (row tile x group) grid that reads fw's slab once a row
+    tile), two, and all of M's row tiles a block (one block a group, fw's
+    slab read once); each output held against the plain version."""
+    import torch
+    from repro_torch.kernels import cuda_lib, drs_search
+    out = {}
+    for (fx, fw), path, ns in ((refresh_args[:2], "gemv", (1, 2, 4, 8)),
+                               (admission_args[:2], "tc",
+                                sorted({1, 2, -(-admission_args[0].shape[0]
+                                                // 64)}))):
+        (m, k), f = fx.shape, fw.shape[1]
+        want = drs_search.drs_scores_plain(fx, fw, block=block)
+        got = torch.empty_like(want)
+        stream = cuda_lib.stream(fx.device)
+        plan = drs_search.scores_plan(m, k, f, block, fx.dtype)
+        by = {}
+        for n in ns:
+            by[n] = device_ms(lambda: cuda_lib.launch(
+                f"repro_drs_scores_{path}", fx.data_ptr(), fw.data_ptr(),
+                got.data_ptr(), m, k, f, block, n, stream))[0]
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+                fail(f"drs_scores ({path}) at {n} differs from its plain "
+                     f"version (max abs err "
+                     f"{float((got - want).abs().max())})")
+        what = "slices a group" if path == "gemv" else "row tiles a block"
+        out[f"{path} fx {[m, k]}"] = {
+            "plan": plan.slices if path == "gemv" else plan.per,
+            "by": what, "ms": by}
+        print(f"[splits] drs_scores ({path}) fx {[m, k]}: plan "
+              f"{plan._asdict()}; device ms by {what} "
+              + ", ".join(f"{n}: {ms:.4f}" for n, ms in by.items()),
+              flush=True)
+    return out
+
+
+def tile_sweep(x, wg, wu, wd, mask, block) -> dict:
+    """Phase 9 for the tensor-core tile-masked FFN on phase 7's inputs and
+    the kernels' per-token mask: device time (and the gate/up and down
+    kernels' own times) at 64- and 128-row gate/up blocks and 1, 2, 4 and
+    8 F splits of the down projection, each output held against the plain
+    version."""
+    import torch
+    from repro_torch.kernels import cuda_lib, dsg_ffn
+    (m, d), f = x.shape, wg.shape[1]
+    plan = dsg_ffn.tile_plan(m, d, f, block, x.dtype)
+    want = dsg_ffn.dsg_ffn_plain(x, wg, wu, wd, mask, block=block)
+    mk = mask.to(torch.float32).contiguous()
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    stream = cuda_lib.stream(x.device)
+    rtol, atol = TOL[str(x.dtype)]
+    by = {}
+    for rows in (64, 128):
+        live = torch.empty((-(-m // rows), f // 128), dtype=torch.int32,
+                           device=x.device)
+        for splits in (1, 2, 4, 8):
+            ms, note = device_ms(lambda: cuda_lib.launch(
+                "repro_dsg_ffn_tile_tc", x.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), mk.data_ptr(),
+                live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+                block, rows, splits, stream))
+            if not torch.allclose(out.float(), want.float(), rtol=rtol,
+                                  atol=atol):
+                fail(f"dsg_ffn (tc) at {rows} rows, {splits} splits differs "
+                     f"from its plain version (max abs err "
+                     f"{float((out.float() - want.float()).abs().max())})")
+            by[f"rows {rows} splits {splits}"] = {
+                "ms": ms, "kernel_ns": note["kernel_ns"]}
+    print(f"[splits] dsg_ffn (tc): plan rows {plan.rows} splits "
           f"{plan.splits}; device ms (gate/up + down ns) by config: "
           + "; ".join(f"{n}: {r['ms']:.4f} "
                       f"({'+'.join(map(str, r['kernel_ns']))})"
@@ -837,6 +968,9 @@ def main() -> int:
         (m, d), k = args[0].shape, args[1].shape[0]
         return drs_search.project_plan(m, k, d, args[0].dtype).path
 
+    def scores_path(args, kwargs=None):
+        return scores_plan(args, kwargs or {}).path
+
     def paged_path(args, kwargs):
         return paged_plan(args, kwargs).path
 
@@ -844,6 +978,7 @@ def main() -> int:
         return csr_plan(args, kwargs).path
 
     paths = {"drs_project": (project_path, ("gemv", "tc", "simt")),
+             "drs_scores": (scores_path, ("gemv", "tc", "simt")),
              "paged_decode": (paged_path, ("split", "serial")),
              "dsg_ffn_csr": (csr_path, ("union", "lanes"))}
     for name, (_, op) in kernels.items():
@@ -910,11 +1045,19 @@ def main() -> int:
         if by_path[name] != planned:
             fail(f"{name} launched {by_path[name]} by path on the serve "
                  f"run, its shapes plan {planned}")
-    for cap, path in ((captures["drs_project"], "tc"),
-                      (refresh["drs_project"], "gemv")):
-        if project_path(cap.args) != path:
-            fail(f"drs_project at x {list(cap.args[0].shape)} plans "
-                 f"{project_path(cap.args)}, not {path}")
+    # every admission launch of the DRS kernels took the wgmma tiles and
+    # every refresh launch the GEMV
+    for name, plan_path in (("drs_project", project_path),
+                            ("drs_scores", scores_path)):
+        for cap, path in ((captures[name], "tc"), (refresh[name], "gemv")):
+            if plan_path(cap.args, cap.kwargs) != path:
+                fail(f"{name} at {list(cap.args[0].shape)} plans "
+                     f"{plan_path(cap.args, cap.kwargs)}, not {path}")
+        want_paths = {"gemv": by_shape["refresh"],
+                      "tc": by_shape["admission"], "simt": 0}
+        if by_path[name] != want_paths:
+            fail(f"{name} took {by_path[name]} by path on the serve run; "
+                 f"admission must take tc and refresh gemv: {want_paths}")
     for name, path in (("paged_decode", "split"), ("dsg_ffn_csr", "union")):
         if by_path[name][path] != launches[name]:
             fail(f"{name} took {by_path[name]} by path on the serve run; "
@@ -974,6 +1117,14 @@ def main() -> int:
             row["launches_by_path"] = by_path[name]
             row["path"] = project_path(captures[name].args)
             row["refresh"]["path"] = project_path(refresh[name].args)
+        if name == "drs_scores":
+            row["launches_by_path"] = by_path[name]
+            for r, cap in ((row, captures[name]),
+                           (row["refresh"], refresh[name])):
+                args = to_dtype(cap.args, torch.bfloat16)
+                plan = scores_plan(args, cap.kwargs)
+                r.update(path=plan.path, plan=plan._asdict(),
+                         **matmul_yardstick(args))
         if name in ("paged_decode", "dsg_ffn_csr"):
             cap = captures[name]
             plan = (paged_plan if name == "paged_decode" else csr_plan)(
@@ -992,6 +1143,10 @@ def main() -> int:
                    f"{r['library_span_ms']:.4f} ms) / "
                    f"{r['library_call_ms']:.4f} ms a call")
             path = f" path {r['path']}," if "path" in r else ""
+            if "matmul_ms" in r:
+                lib += (f", torch.matmul(fx, fw) alone (not the same "
+                        f"function) {r['matmul_ms']:.4f} ms (span "
+                        f"{r['matmul_span_ms']:.4f} ms)")
             if "dense_ffn_ms" in r:
                 lib += (f", dense SwiGLU (not the same function) "
                         f"{r['dense_ffn_ms']:.4f} ms (span "
@@ -1013,7 +1168,8 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen, device=dev)
     x_ffn, qkv_a = capture_layer0(cfg, model, dsg, tokens[:, :256])
     _, (q_long, k_b, v_b) = capture_layer0(cfg, model, dsg, tokens)
-    rows.append(dsg_ffn_phase(cfg, model, dsg, x_ffn))
+    ffn_row, ffn_mask = dsg_ffn_phase(cfg, model, dsg, x_ffn)
+    rows.append(ffn_row)
     cases = {"a": qkv_a, "b": (q_long[:, -256:].contiguous(), k_b, v_b)}
     rows.append(flash_phase(cases))
     print(f"[phases 7-8] {time.perf_counter() - t0:.2f}s", flush=True)
@@ -1029,6 +1185,14 @@ def main() -> int:
         cap = captures[name]
         next(r for r in rows if r["name"] == name)["split_sweep"] = fn(
             to_dtype(cap.args, torch.bfloat16), cap.kwargs)
+    next(r for r in rows if r["name"] == "drs_scores")["split_sweep"] = \
+        scores_sweep(*(to_dtype(c.args, torch.bfloat16) for c in
+                       (refresh["drs_scores"], captures["drs_scores"])),
+                     cfg.dsg.block)
+    ffn = model.layers[0].ffn
+    ffn_row["split_sweep"] = tile_sweep(
+        x_ffn, ffn.w_gate.data, ffn.w_up.data, ffn.w_down.data, ffn_mask,
+        cfg.dsg.block)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsg_linear import DSGConfig, SwiGLU
+from repro_torch.models.api import require_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import RMSNorm
 from repro_torch.models.transformer import Block, Transformer
@@ -31,8 +32,10 @@ def tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def model_from_jax(params: dict, cfg, device=None) -> Transformer:
-    """A `repro.models.transformer.init_model` pytree -> Transformer."""
+def model_from_jax(params: dict, cfg, device="cuda") -> Transformer:
+    """A `repro.models.transformer.init_model` pytree -> Transformer, on
+    the card unless `device` says otherwise."""
+    device = require_device(device)
     lay = params["layers"]
 
     def take(leaf, l):
@@ -64,8 +67,10 @@ def config_from_jax(ref_cfg) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def dsg_from_jax(dsg: Optional[dict], device=None) -> Optional[dict]:
-    """A `repro.models.transformer.init_dsg` state -> {'r', 'fw'}."""
+def dsg_from_jax(dsg: Optional[dict], device="cuda") -> Optional[dict]:
+    """A `repro.models.transformer.init_dsg` state -> {'r', 'fw'}, on the
+    card unless `device` says otherwise."""
+    device = require_device(device)
     if dsg is None:
         return None
     return {"r": tensor(dsg["r"], device), "fw": tensor(dsg["fw"], device)}

@@ -26,6 +26,24 @@
 //   run.
 // - project_kernel (f32, or rows that are not 16-byte aligned): a
 //   16 x 16 shared-memory SIMT tile; any M, k and d (ragged edges masked).
+//
+// drs_scores: relu(fx @ fw) summed over each `block`-wide group, fx (M, k),
+// fw (k, F) -> (M, F / block) f32.  Bound on the H100: bytes (fw, 4 MB at
+// the serve shape, read once; 2 * M * k * F flops stay below the tensor
+// cores' balance at M <= 256).  Three kernels, chosen by
+// `drs_search.scores_plan` from dtype and shape:
+//
+// - scores_gemv_kernel (bf16, M <= 16: the refresh step): fw streamed
+//   once with 16-byte loads, each group's columns split across a cluster
+//   so that the blocks fill the SMs; the k sum is complete before the ReLU
+//   and rank 0 sums the slices' partial group sums in rank order.
+// - scores_tc_kernel (bf16, M > 16: admission): wgmma with fx K-major and
+//   fw's 128-column slab MN-major, both by TMA, ReLU and group sums on the
+//   accumulator fragments, one f32 per (row, group) stored.
+// - scores_kernel (f32, or groups the bf16 kernels do not tile): one block
+//   per (row tile of at most 16, group), a serial dot a thread.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -316,6 +334,276 @@ __global__ void scores_kernel(const T* __restrict__ fx,
   }
 }
 
+// ---- drs_scores, bf16 GEMV (M <= 16: the refresh step) -------------------
+constexpr int kScoresThreads = 128;
+
+// Block (slice s, group g), clusters of `slices` blocks along x: the block
+// computes fx . fw over all of k for `width` = block / slices adjacent
+// columns of group g, each thread 8 adjacent columns (one 16-byte load a
+// row of fw) for rows ph, ph + phases, ... of k, with M x 8 f32 sums.  The
+// sums over k are complete before the ReLU: a warp-shuffle tree over the
+// warp's row phases, then the four warps in order through shared memory.
+// Then ReLU, the slice's column sum of each row (a warp per row: strided
+// loads in column order and a shuffle tree), and rank 0 sums the slices'
+// partial group sums in rank order through distributed shared memory (a
+// column split may be summed after the ReLU, which is per element).
+template <int M>
+__global__ void __launch_bounds__(kScoresThreads)
+scores_gemv_kernel(const __nv_bfloat16* __restrict__ fx,
+                   const __nv_bfloat16* __restrict__ fw,
+                   float* __restrict__ out, int k, int f, int block,
+                   int slices) {
+  namespace h = repro::sm90;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ uint64_t bar;
+  __shared__ float part[M];
+  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw + (size_t)M * k * 2);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int width = block / slices, cpr = width / 8;
+  const int phases = kScoresThreads / cpr;
+  const int s = blockIdx.x, g = blockIdx.y, groups = f / block;
+  const int c = tid % cpr, ph = tid / cpr;
+  if (tid == 0) {
+    h::mbar_init(&bar, 1);
+    h::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t bytes = (uint32_t)M * k * 2;
+    h::mbar_expect_tx(&bar, bytes);
+    h::bulk_load(smem_raw, fx, bytes, &bar);
+  }
+  const size_t ld = (size_t)f / 8;  // a row of fw in 16-byte chunks
+  const uint4* w = reinterpret_cast<const uint4*>(fw) +
+                   ((size_t)g * block + s * width) / 8 + c;
+  const int n = ph < k ? (k - ph + phases - 1) / phases : 0;
+  // the first loads of fw go out before fx has arrived
+  constexpr int kAhead = 8;
+  uint4 wv[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u)
+    wv[u] = u < n ? __ldg(w + (size_t)(ph + u * phases) * ld)
+                  : make_uint4(0, 0, 0, 0);
+  float acc[M][8];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  h::mbar_wait(&bar, 0);
+  for (int base = 0; base < n; base += kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int i = base + u;
+      if (i < n) {
+        const int row = ph + i * phases;
+        float wf[8];
+        h::bf16x8_to_f32(wv[u], wf);
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          const float xv = __bfloat162float(xs[r * k + row]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
+        }
+      }
+      const int nxt = i + kAhead;
+      if (nxt < n) wv[u] = __ldg(w + (size_t)(ph + nxt * phases) * ld);
+    }
+  }
+  // the warp's row phases: lanes c + cpr * p hold column chunk c
+  for (int o = cpr; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], o);
+  if (lane < cpr)
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        red[(warp * M + r) * width + c * 8 + j] = acc[r][j];
+  __syncthreads();
+  constexpr int kWarps = kScoresThreads / 32;
+  for (int o = tid; o < M * width; o += kScoresThreads) {
+    float v = red[o];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) v += red[q * M * width + o];
+    red[o] = fmaxf(v, 0.f);
+  }
+  __syncthreads();
+  for (int r = warp; r < M; r += kWarps) {
+    float v = 0.f;
+    for (int col = lane; col < width; col += 32) v += red[r * width + col];
+    v = repro::warp_sum(v);
+    if (lane == 0) part[r] = v;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  if (slices > 1) cl.sync();  // every slice's sums are in its shared memory
+  else __syncthreads();
+  if (s == 0 && tid < M) {
+    float v = 0.f;
+    for (int q = 0; q < slices; ++q)
+      v += (q ? cl.map_shared_rank(part, q) : part)[tid];
+    out[(size_t)tid * groups + g] = v;
+  }
+  if (slices > 1) cl.sync();  // rank 0 has read the other slices' sums
+}
+
+template <int M>
+int launch_scores_gemv(const void* fx, const void* fw, void* out, int k,
+                       int f, int block, int slices, cudaStream_t stream) {
+  const size_t smem = (size_t)M * k * 2 +
+                      (size_t)(kScoresThreads / 32) * M * (block / slices) * 4;
+  return (int)repro::sm90::launch_cluster(
+      scores_gemv_kernel<M>, dim3(slices, f / block), kScoresThreads,
+      dim3(slices, 1, 1), smem, stream, (const __nv_bfloat16*)fx,
+      (const __nv_bfloat16*)fw, (float*)out, k, f, block, slices);
+}
+
+typedef int (*ScoresGemvLaunch)(const void*, const void*, void*, int, int,
+                                int, int, cudaStream_t);
+constexpr ScoresGemvLaunch kScoresGemvLaunch[kGemvMaxM] = {
+    launch_scores_gemv<1>,  launch_scores_gemv<2>,  launch_scores_gemv<3>,
+    launch_scores_gemv<4>,  launch_scores_gemv<5>,  launch_scores_gemv<6>,
+    launch_scores_gemv<7>,  launch_scores_gemv<8>,  launch_scores_gemv<9>,
+    launch_scores_gemv<10>, launch_scores_gemv<11>, launch_scores_gemv<12>,
+    launch_scores_gemv<13>, launch_scores_gemv<14>, launch_scores_gemv<15>,
+    launch_scores_gemv<16>};
+
+// ---- drs_scores, bf16 wgmma tiles (M > 16: admission) ---------------------
+// Block (128-column tile n, run y of `per` 64-row tiles): fw's (k x 128)
+// slab of the tile comes into shared memory once by TMA, as MN-major B
+// tiles (64 k rows of 64 columns, 128-byte swizzle), and stays there while
+// the block walks its row tiles; each 64 x k tile of fx, the K-major A
+// operand, comes by TMA through two stages (one where the block has one
+// tile, so that two blocks fit on an SM), so the next tile loads under this
+// one's products.  wgmma m64n64k16 twice a K step (the two 64-column
+// halves) into f32 accumulators; ReLU on the fragments; each thread sums
+// its values of a group's columns in register order, then the quad
+// (shuffles xor 1, 2), and one f32 per (row, group) is stored.  Groups of
+// BLK in {8, 16, 32, 64, 128} columns tile the 128 exactly.  Ragged M and
+// k are zero-filled by TMA (a zero row or k step adds nothing); rows past
+// M are not stored.
+constexpr int kScoresTile = 128;
+
+template <int BLK>
+__global__ void __launch_bounds__(128)
+scores_tc_kernel(const __grid_constant__ CUtensorMap fxmap,
+                 const __grid_constant__ CUtensorMap fwmap,
+                 float* __restrict__ out, int m, int k, int f, int per) {
+  namespace h = repro::sm90;
+  constexpr int kG = kScoresTile / BLK;  // groups of the column tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t wbar, full[2];
+  const int kc = (k + 63) / 64;
+  uint8_t* ws = h::align1024(smem_raw);        // (kc, 2) fw tiles
+  uint8_t* xs = ws + 2 * kc * h::kTileBytes;   // (stages, kc) fx tiles
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kScoresTile, mt = (m + 63) / 64;
+  const int stages = min(2, per);
+  const int t0 = blockIdx.y * per, nt = max(0, min(mt, t0 + per) - t0);
+  if (nt == 0) return;  // uniform across the block
+  if (tid == 0) {
+    h::mbar_init(&wbar, 1);
+    h::mbar_init(&full[0], 1);
+    h::mbar_init(&full[1], 1);
+    h::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_x = [&](int j) {
+    const int slot = j % stages;
+    h::mbar_expect_tx(&full[slot], kc * h::kTileBytes);
+    for (int i = 0; i < kc; ++i)
+      h::tma_load_2d(xs + (slot * kc + i) * h::kTileBytes, &fxmap,
+                     &full[slot], i * 64, (t0 + j) * 64);
+  };
+  if (tid == 0) {
+    h::mbar_expect_tx(&wbar, 2 * kc * h::kTileBytes);
+    for (int i = 0; i < kc; ++i)
+      for (int hn = 0; hn < 2; ++hn)
+        h::tma_load_2d(ws + (2 * i + hn) * h::kTileBytes, &fwmap, &wbar,
+                       n0 + 64 * hn, i * 64);
+    for (int j = 0; j < min(nt, stages); ++j) load_x(j);
+  }
+  const int groups = f / BLK, g0 = n0 / BLK;
+  const int r = warp * 16 + lane / 4;
+  h::mbar_wait(&wbar, 0);
+  for (int j = 0; j < nt; ++j) {
+    const int slot = j % stages;
+    h::mbar_wait(&full[slot], (j / stages) & 1);
+    float a0[32], a1[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a0[i] = a1[i] = 0.f;
+    h::wgmma_fence();
+    for (int i = 0; i < kc; ++i) {
+      const uint8_t* xt = xs + (slot * kc + i) * h::kTileBytes;
+      const uint8_t* wt = ws + 2 * i * h::kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = h::desc_k(xt, kk);
+        h::wgmma_ss_tb(a0, da, h::desc_mn(wt, kk), 1);
+        h::wgmma_ss_tb(a1, da, h::desc_mn(wt + h::kTileBytes, kk), 1);
+      }
+    }
+    h::wgmma_commit();
+    h::wgmma_wait_all();
+    h::fence_regs(a0);
+    h::fence_regs(a1);
+    __syncthreads();  // every thread is done with this stage: refill it
+    if (tid == 0 && j + stages < nt) load_x(j + stages);
+    // accumulator i of half hn: row r + 8 ((i >> 1) & 1), column
+    // 64 hn + 8 (i / 4) + 2 (lane % 4) + (i % 2), in group
+    // (64 hn + 8 (i / 4)) / BLK since BLK is a multiple of 8
+    float sum[2][kG];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int q = 0; q < kG; ++q) sum[hh][q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sum[(i >> 1) & 1][(8 * (i / 4)) / BLK] += fmaxf(a0[i], 0.f);
+      sum[(i >> 1) & 1][(64 + 8 * (i / 4)) / BLK] += fmaxf(a1[i], 0.f);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int q = 0; q < kG; ++q) {
+        sum[hh][q] += __shfl_xor_sync(0xffffffffu, sum[hh][q], 1);
+        sum[hh][q] += __shfl_xor_sync(0xffffffffu, sum[hh][q], 2);
+      }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = (t0 + j) * 64 + r + 8 * hh;
+        if (row >= m) continue;
+#pragma unroll
+        for (int q = 0; q < kG; ++q)
+          if (g0 + q < groups) out[(size_t)row * groups + g0 + q] = sum[hh][q];
+      }
+    }
+  }
+}
+
+template <int BLK>
+int launch_scores_tc(const void* fx, const void* fw, void* out, int m, int k,
+                     int f, int per, cudaStream_t stream) {
+  CUtensorMap fxmap, fwmap;
+  const uint64_t xdims[2] = {(uint64_t)k, (uint64_t)m};
+  const uint64_t wdims[2] = {(uint64_t)f, (uint64_t)k};
+  int err = repro::sm90::encode_bf16_rows(&fxmap, fx, 2, xdims);
+  if (!err) err = repro::sm90::encode_bf16_rows(&fwmap, fw, 2, wdims);
+  if (err) return err;
+  const int kc = (k + 63) / 64, mt = (m + 63) / 64;
+  const size_t smem =
+      (size_t)(2 + (per < 2 ? per : 2)) * kc * repro::sm90::kTileBytes + 1024;
+  const dim3 grid((f + kScoresTile - 1) / kScoresTile, (mt + per - 1) / per);
+  return (int)repro::sm90::launch_cluster(scores_tc_kernel<BLK>, grid, 128,
+                                          dim3(1, 1, 1), smem, stream, fxmap,
+                                          fwmap, (float*)out, m, k, f, per);
+}
+
 }  // namespace
 
 extern "C" int repro_drs_project(int dtype, const void* x, const void* r,
@@ -382,6 +670,39 @@ extern "C" int repro_drs_scores(int dtype, const void* fx, const void* fw,
         (const T*)fx, (const T*)fw, (float*)out, m, k, f, block, rows);
   });
   return (int)cudaGetLastError();
+}
+
+// bf16, fx (m, k) with m <= 16, k % 8 == 0, f % 8 == 0, 16-byte aligned
+// bases; `slices` (1, 2, 4 or 8) column slices of a group, each 8 a
+// multiple of 8 columns wide and at most 256 (a power of two).
+extern "C" int repro_drs_scores_gemv(const void* fx, const void* fw,
+                                     void* out, int m, int k, int f,
+                                     int block, int slices, void* stream) {
+  const int width = slices > 0 ? block / slices : 0;
+  if (m < 1 || m > kGemvMaxM || k < 1 || k % 8 || f % 8 || block < 8 ||
+      f % block || slices < 1 || slices > 8 || block % slices ||
+      width < 8 || width > 256 || (width & (width - 1)))
+    return (int)cudaErrorInvalidValue;
+  return kScoresGemvLaunch[m - 1](fx, fw, out, k, f, block, slices,
+                                  (cudaStream_t)stream);
+}
+
+// bf16, k % 8 == 0, f % 8 == 0, 16-byte aligned bases; block in {8, 16,
+// 32, 64, 128}; each block walks `per` 64-row tiles.
+extern "C" int repro_drs_scores_tc(const void* fx, const void* fw, void* out,
+                                   int m, int k, int f, int block, int per,
+                                   void* stream) {
+  if (m < 1 || k < 1 || k % 8 || f % 8 || per < 1 || block < 1 || f % block)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (block) {
+    case 8: return launch_scores_tc<8>(fx, fw, out, m, k, f, per, st);
+    case 16: return launch_scores_tc<16>(fx, fw, out, m, k, f, per, st);
+    case 32: return launch_scores_tc<32>(fx, fw, out, m, k, f, per, st);
+    case 64: return launch_scores_tc<64>(fx, fw, out, m, k, f, per, st);
+    case 128: return launch_scores_tc<128>(fx, fw, out, m, k, f, per, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_error_string(int err) {

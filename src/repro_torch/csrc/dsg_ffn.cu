@@ -503,10 +503,10 @@ extern "C" int repro_dsg_ffn_csr_union(const void* x, const void* wg,
 // Bound on the H100: bytes at M = 256 (x and out once, 3 * d weight
 // columns for each F block live in any row tile; 6 * d flops per live
 // (token, hidden unit) pair, so about 2 * M / el flops per weight byte,
-// below the ~295 where the tensor cores bound).  This first version is a
-// SIMT tiled product on the CUDA cores (kTM x kTN cells, 4 x 4 outputs a
-// thread, f32 tiles in shared memory), so it is bound by the CUDA cores'
-// f32 rate; tensor-core (wgmma) tiles are the next step.
+// below the ~295 where the tensor cores bound).  These SIMT kernels (kTM x
+// kTN cells, 4 x 4 outputs a thread, f32 tiles in shared memory) take f32
+// and the shapes the tensor-core path below does not; they are bound by
+// the CUDA cores' f32 rate.
 
 namespace {
 
@@ -626,6 +626,339 @@ tile_down_kernel(const T* __restrict__ h, const T* __restrict__ wd,
 }
 
 }  // namespace
+
+// --- dsg_ffn: tile-masked, the bf16 tensor-core path ------------------------
+//
+// Picked by `dsg_ffn.tile_plan` for bf16 with d % 64 == 0 and F % 128 == 0.
+// Cells are (`rows`-row block, 128-column chunk of F), rows 64 or 128 (one
+// consumer warpgroup per 64 rows of a gate/up block); `live`
+// (ceil(M / rows), F / 128) flags the cells that some token of the block's
+// rows selected.
+//   (a) tile_gate_up_tc, grid (ceil(M / rows), F / 128): the block ORs its
+//       cell's slice of token_mask, writes the cell's live flag and exits
+//       before any weight load when the cell is dead.  Otherwise one
+//       producer warp keeps TMA loads in flight through a ring of
+//       kFfnStages mbarrier stages (x as K-major 64 x 64 tiles, one a
+//       warpgroup, and wg and wu as MN-major 64 (d) x 64 (F) tiles, two of
+//       each, which the warpgroups share) and each consumer warpgroup runs
+//       wgmma m64n64k16 into a gate and an up accumulator of 64 x 128,
+//       releasing a stage by an arrive on its `empty` barrier.  The
+//       epilogue applies silu(g) * u * tok on the fragments and stores h
+//       in bf16.
+//   (b) tile_down_tc, grid (ceil(d / 128), ceil(M / 64), splits),
+//       clusters of `splits` blocks along z: block (n, t, s) lists the live
+//       chunks of the cells that hold its 64 rows in ascending order, takes
+//       its contiguous share of them and sums h (K-major, as stored) times
+//       wd (MN-major, as stored) into a 64 x 128 f32 accumulator through
+//       the same kind of producer/consumer ring.  Rank 0 adds the other ranks'
+//       partials in rank order through distributed shared memory
+//       (overlaying the idle ring) and rounds once.
+// No atomics on device memory: every output is summed in a fixed order.
+
+namespace {
+
+constexpr int kFfnStages = 4;      // ring stages of both kernels
+constexpr int kMaxChunks = 1024;   // F / 128 the tc path takes
+
+template <int NWG>  // consumer warpgroups: 64 rows each
+__global__ void __launch_bounds__(NWG * 128 + 32)
+tile_gate_up_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wgmap,
+                       const __grid_constant__ CUtensorMap wumap,
+                       const float* __restrict__ token_mask,
+                       int32_t* __restrict__ live, bf16* __restrict__ h,
+                       int m, int d, int f, int block) {
+  namespace hp = repro::sm90;
+  constexpr int kStageBytes = (NWG + 4) * hp::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kFfnStages], empty[kFfnStages];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * 64 * NWG, n0 = blockIdx.y * 128;
+  const int groups = f / block, g0 = n0 / block;
+  const int ng = (n0 + 127) / block - g0 + 1;
+  const int rows = min(64 * NWG, m - m0);
+  int any = 0;
+  for (int e = threadIdx.x; e < rows * ng; e += blockDim.x)
+    any |= token_mask[(size_t)(m0 + e / ng) * groups + g0 + e % ng] > 0.f;
+  any = __syncthreads_or(any);
+  if (tid == 0) live[blockIdx.x * gridDim.y + blockIdx.y] = any;
+  if (!any) return;  // uniform across the block
+  uint8_t* base = hp::align1024(smem_raw);
+  if (tid == 0) {
+    for (int i = 0; i < kFfnStages; ++i) {
+      hp::mbar_init(&full[i], 1);
+      hp::mbar_init(&empty[i], NWG * 128);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  const int nk = (d + 63) / 64;
+  if (warp == NWG * 4) {  // the producer warp
+    if (lane == 0)
+      for (int j = 0; j < nk; ++j) {
+        const int slot = j % kFfnStages;
+        if (j >= kFfnStages)
+          hp::mbar_wait(&empty[slot], (j / kFfnStages - 1) & 1);
+        uint8_t* st = base + slot * kStageBytes;
+        hp::mbar_expect_tx(&full[slot], kStageBytes);
+#pragma unroll
+        for (int q = 0; q < NWG; ++q)
+          hp::tma_load_2d(st + q * hp::kTileBytes, &xmap, &full[slot], j * 64,
+                          m0 + 64 * q);
+#pragma unroll
+        for (int hn = 0; hn < 2; ++hn) {
+          hp::tma_load_2d(st + (NWG + hn) * hp::kTileBytes, &wgmap,
+                          &full[slot], n0 + 64 * hn, j * 64);
+          hp::tma_load_2d(st + (NWG + 2 + hn) * hp::kTileBytes, &wumap,
+                          &full[slot], n0 + 64 * hn, j * 64);
+        }
+      }
+    return;  // no block barrier follows
+  }
+  const int wg = warp / 4;
+  float ga[32], gb[32], ua[32], ub[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ga[i] = gb[i] = ua[i] = ub[i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int slot = j % kFfnStages;
+    hp::mbar_wait(&full[slot], (j / kFfnStages) & 1);
+    const uint8_t* st = base + slot * kStageBytes;
+    const uint8_t* xt = st + wg * hp::kTileBytes;
+    const uint8_t* wt = st + NWG * hp::kTileBytes;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hp::desc_k(xt, kk);
+      hp::wgmma_ss_tb(ga, da, hp::desc_mn(wt, kk), 1);
+      hp::wgmma_ss_tb(gb, da, hp::desc_mn(wt + hp::kTileBytes, kk), 1);
+      hp::wgmma_ss_tb(ua, da, hp::desc_mn(wt + 2 * hp::kTileBytes, kk), 1);
+      hp::wgmma_ss_tb(ub, da, hp::desc_mn(wt + 3 * hp::kTileBytes, kk), 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(ga);
+    hp::fence_regs(gb);
+    hp::fence_regs(ua);
+    hp::fence_regs(ub);
+    hp::mbar_arrive(&empty[slot]);
+  }
+  // accumulator i: row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) & 1), column
+  // 8 (i / 4) + 2 (lane % 4) + (i % 2) of its 64-column half
+  const int r = m0 + 64 * wg + 16 * (warp % 4) + lane / 4, cq = 2 * (lane % 4);
+  auto emit = [&](const float (&g)[32], const float (&u)[32], int c0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r + 8 * hh;
+      if (row >= m) continue;
+      const float* tok = token_mask + (size_t)row * groups;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = c0 + 8 * q + cq, i = 4 * q + 2 * hh;
+        const float g0v = g[i], g1v = g[i + 1];
+        const float h0 = g0v / (1.f + expf(-g0v)) * u[i] * tok[col / block];
+        const float h1 =
+            g1v / (1.f + expf(-g1v)) * u[i + 1] * tok[(col + 1) / block];
+        *reinterpret_cast<__nv_bfloat162*>(h + (size_t)row * f + col) =
+            __floats2bfloat162_rn(h0, h1);
+      }
+    }
+  };
+  emit(ga, ua, n0);
+  emit(gb, ub, n0 + 64);
+}
+
+__global__ void __launch_bounds__(160)
+tile_down_tc_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wdmap,
+                    const int32_t* __restrict__ live, bf16* __restrict__ out,
+                    int m, int d, int f, int rows, int splits) {
+  namespace hp = repro::sm90;
+  namespace cg = cooperative_groups;
+  constexpr int kStageBytes = 3 * hp::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kFfnStages], empty[kFfnStages];
+  __shared__ int chunks[kMaxChunks];
+  __shared__ int n_live;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 64;
+  const int split = blockIdx.z, nc = f / 128;
+  // the live flags of the gate/up block (`rows` rows) holding these 64
+  const int32_t* cell_live = live + (size_t)(m0 / rows) * nc;
+  uint8_t* base = hp::align1024(smem_raw);
+  // the ranks' partials overlay the ring once every product is done
+  float* part = reinterpret_cast<float*>(base);
+  if (warp == 0) {  // the live chunks, ascending
+    int n = 0;
+    for (int c0 = 0; c0 < nc; c0 += 32) {
+      const int c = c0 + lane;
+      const bool on = c < nc && cell_live[c] != 0;
+      const uint32_t bits = __ballot_sync(0xffffffffu, on);
+      if (on) chunks[n + __popc(bits & ((1u << lane) - 1u))] = c;
+      n += __popc(bits);
+    }
+    if (lane == 0) {
+      n_live = n;
+      for (int i = 0; i < kFfnStages; ++i) {
+        hp::mbar_init(&full[i], 1);
+        hp::mbar_init(&empty[i], 128);
+      }
+      hp::mbar_fence_init();
+    }
+  }
+  __syncthreads();
+  const int nl = n_live, per = (nl + splits - 1) / splits;
+  const int c_begin = min(nl, split * per), c_end = min(nl, c_begin + per);
+  const int steps = 2 * (c_end - c_begin);  // two 64-wide K steps a chunk
+  float a0[32], a1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a0[i] = a1[i] = 0.f;
+  if (warp == 4) {  // the producer warp
+    if (lane == 0)
+      for (int j = 0; j < steps; ++j) {
+        const int slot = j % kFfnStages;
+        if (j >= kFfnStages)
+          hp::mbar_wait(&empty[slot], (j / kFfnStages - 1) & 1);
+        uint8_t* st = base + slot * kStageBytes;
+        const int kcol = chunks[c_begin + j / 2] * 128 + (j % 2) * 64;
+        hp::mbar_expect_tx(&full[slot], kStageBytes);
+        hp::tma_load_2d(st, &hmap, &full[slot], kcol, m0);
+        hp::tma_load_2d(st + hp::kTileBytes, &wdmap, &full[slot], n0, kcol);
+        hp::tma_load_2d(st + 2 * hp::kTileBytes, &wdmap, &full[slot],
+                        n0 + 64, kcol);
+      }
+  } else {
+    for (int j = 0; j < steps; ++j) {
+      const int slot = j % kFfnStages;
+      hp::mbar_wait(&full[slot], (j / kFfnStages) & 1);
+      const uint8_t* st = base + slot * kStageBytes;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = hp::desc_k(st, kk);
+        hp::wgmma_ss_tb(a0, da, hp::desc_mn(st + hp::kTileBytes, kk), 1);
+        hp::wgmma_ss_tb(a1, da, hp::desc_mn(st + 2 * hp::kTileBytes, kk), 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait_all();
+      hp::fence_regs(a0);
+      hp::fence_regs(a1);
+      hp::mbar_arrive(&empty[slot]);
+    }
+  }
+  // fragment i of half hn: local row 16 warp + lane / 4 + 8 ((i >> 1) & 1),
+  // column 64 hn + 8 (i / 4) + 2 (lane % 4) + (i % 2)
+  const int rl = 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  cg::cluster_group cl = cg::this_cluster();
+  if (splits > 1) {
+    __syncthreads();  // every product is done: the ring is free
+    if (warp < 4)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = rl + 8 * ((i >> 1) & 1), col = 8 * (i / 4) + cq;
+        *reinterpret_cast<float2*>(part + row * 128 + col) =
+            make_float2(a0[i], a0[i + 1]);
+        *reinterpret_cast<float2*>(part + row * 128 + 64 + col) =
+            make_float2(a1[i], a1[i + 1]);
+      }
+    cl.sync();  // every split's partial is in its shared memory
+  }
+  if (split == 0 && warp < 4) {
+    for (int q = 1; q < splits; ++q) {
+      const float* pq = cl.map_shared_rank(part, q);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = rl + 8 * ((i >> 1) & 1), col = 8 * (i / 4) + cq;
+        const float2 v0 =
+            *reinterpret_cast<const float2*>(pq + row * 128 + col);
+        const float2 v1 =
+            *reinterpret_cast<const float2*>(pq + row * 128 + 64 + col);
+        a0[i] += v0.x;
+        a0[i + 1] += v0.y;
+        a1[i] += v1.x;
+        a1[i + 1] += v1.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = m0 + rl + 8 * ((i >> 1) & 1);
+      const int col = n0 + 8 * (i / 4) + cq;
+      if (row >= m) continue;
+      bf16* o = out + (size_t)row * d;
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(o + col) =
+            __floats2bfloat162_rn(a0[i], a0[i + 1]);
+      if (col + 64 < d)
+        *reinterpret_cast<__nv_bfloat162*>(o + col + 64) =
+            __floats2bfloat162_rn(a1[i], a1[i + 1]);
+    }
+  }
+  if (splits > 1) cl.sync();  // rank 0 has read the other splits' sums
+}
+
+template <int NWG>
+int launch_tile_tc(const CUtensorMap& xmap, const CUtensorMap& wgmap,
+                   const CUtensorMap& wumap, const CUtensorMap& hmap,
+                   const CUtensorMap& wdmap, const float* token_mask,
+                   int32_t* live, bf16* h, bf16* out, int m, int d, int f,
+                   int block, int splits, cudaStream_t stream) {
+  namespace hp = repro::sm90;
+  const size_t up_smem =
+      (size_t)kFfnStages * (NWG + 4) * hp::kTileBytes + 1024;
+  cudaError_t e = hp::launch_cluster(
+      tile_gate_up_tc_kernel<NWG>,
+      dim3((m + 64 * NWG - 1) / (64 * NWG), f / 128), NWG * 128 + 32,
+      dim3(1, 1, 1), up_smem, stream, xmap, wgmap, wumap, token_mask, live,
+      h, m, d, f, block);
+  if (e != cudaSuccess) return (int)e;
+  const size_t down_smem = (size_t)kFfnStages * 3 * hp::kTileBytes + 1024;
+  e = hp::launch_cluster(tile_down_tc_kernel,
+                         dim3((d + 127) / 128, (m + 63) / 64, splits), 160,
+                         dim3(1, 1, splits), down_smem, stream, hmap, wdmap,
+                         (const int32_t*)live, out, m, d, f, 64 * NWG,
+                         splits);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The tensor-core path, bf16 only: d % 64 == 0, F % 128 == 0 (at most
+// 128 K), 16-byte aligned bases; `rows` (64 or 128) token rows a block of
+// either kernel, live (ceil(M / rows), F / 128) int32, h (M, F) bf16
+// scratch; `splits` (1-8) F splits of the down projection.
+extern "C" int repro_dsg_ffn_tile_tc(const void* x, const void* wg,
+                                     const void* wu, const void* wd,
+                                     const void* token_mask, void* live,
+                                     void* h, void* out, int m, int d, int f,
+                                     int block, int rows, int splits,
+                                     void* stream) {
+  if (m < 1 || d < 64 || d % 64 || f < 128 || f % 128 ||
+      f / 128 > kMaxChunks || block < 1 || f % block ||
+      (rows != 64 && rows != 128) || splits < 1 || splits > 8)
+    return (int)cudaErrorInvalidValue;
+  namespace hp = repro::sm90;
+  CUtensorMap xmap, wgmap, wumap, hmap, wdmap;
+  const uint64_t xdims[2] = {(uint64_t)d, (uint64_t)m};
+  const uint64_t wdims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint64_t hdims[2] = {(uint64_t)f, (uint64_t)m};
+  const uint64_t ddims[2] = {(uint64_t)d, (uint64_t)f};
+  int err = hp::encode_bf16_rows(&xmap, x, 2, xdims);
+  if (!err) err = hp::encode_bf16_rows(&wgmap, wg, 2, wdims);
+  if (!err) err = hp::encode_bf16_rows(&wumap, wu, 2, wdims);
+  if (!err) err = hp::encode_bf16_rows(&hmap, h, 2, hdims);
+  if (!err) err = hp::encode_bf16_rows(&wdmap, wd, 2, ddims);
+  if (err) return err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return rows == 64
+             ? launch_tile_tc<1>(xmap, wgmap, wumap, hmap, wdmap,
+                                 (const float*)token_mask, (int32_t*)live,
+                                 (bf16*)h, (bf16*)out, m, d, f, block, splits,
+                                 s)
+             : launch_tile_tc<2>(xmap, wgmap, wumap, hmap, wdmap,
+                                 (const float*)token_mask, (int32_t*)live,
+                                 (bf16*)h, (bf16*)out, m, d, f, block, splits,
+                                 s);
+}
 
 extern "C" int repro_dsg_ffn_tile(int dtype, const void* x, const void* wg,
                                   const void* wu, const void* wd,

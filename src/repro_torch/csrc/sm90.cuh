@@ -52,6 +52,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+// Arrive once on the barrier (a consumer releasing a ring slot).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // Wait for the completion of the barrier's phase of parity `parity`
 // (0 for its first use, 1 for its second, ...).  A wait that outlasts
 // about ten seconds traps, so a copy that never lands fails the launch
@@ -198,6 +204,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16) * B (16 x 64): A a K-major tile and B
+// an MN-major tile (rows of 64 N values, one row per K; transposed by the
+// instruction), both in shared memory.
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_REGS
+      ", %32, %33, p, 1, 1, 0, 1;\n\t}"
+      : REPRO_WG_D32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 fragments in registers: a[0] rows
 // lane / 4, columns 2 (lane % 4) + {0, 1}; a[1] the same 8 rows down;
 // a[2], a[3] the same 8 columns right) * B (16 x 64), an MN-major tile in
@@ -220,6 +239,15 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// MN-major B tiles: the K step kk (16 rows of 128 bytes) of a tile.
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, kTileBytes, 1024);
+}
+// K-major A or B tiles: the K step kk (16 values, 32 bytes of each row).
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int kk) {
+  return desc_sw128(tile + kk * 32, 16, 1024);
 }
 
 // ---- host: launches ----------------------------------------------------

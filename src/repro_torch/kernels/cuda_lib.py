@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
 import time
@@ -55,8 +56,15 @@ _SIGNATURES = {
     "repro_drs_project_tc": [_P] * 4 + [_I] * 5 + [_P],
     # dtype, fx, fw, out, m, k, f, block, rows, smem, stream
     "repro_drs_scores": [_I] + [_P] * 3 + [_I] * 6 + [_P],
+    # fx, fw, out, m, k, f, block, slices, stream
+    "repro_drs_scores_gemv": [_P] * 3 + [_I] * 5 + [_P],
+    # fx, fw, out, m, k, f, block, per, stream
+    "repro_drs_scores_tc": [_P] * 3 + [_I] * 5 + [_P],
     # dtype, x, wg, wu, wd, token_mask, live, h, out, m, d, f, block, stream
     "repro_dsg_ffn_tile": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    # x, wg, wu, wd, token_mask, live, h, out, m, d, f, block, rows,
+    # splits, stream
+    "repro_dsg_ffn_tile_tc": [_P] * 8 + [_I] * 6 + [_P],
     # dtype, q, k, v, out, bh, s, t, d, causal, offset, scale, stream
     "repro_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
     # q, k, v, out, ws_acc, ws_ml, bh, s, t, d, causal, offset, scale,
@@ -96,9 +104,12 @@ def build() -> tuple:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         objs = [Path(tmp) / (src + ".o") for src in SOURCES]
+        # each nvcc leads a process group of its own, so that a failed
+        # build ends the compilers it started as well
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            process_group=0)
             for src, obj in zip(SOURCES, objs)]
         try:
             for src, proc in zip(SOURCES, procs):
@@ -108,7 +119,7 @@ def build() -> tuple:
         finally:
             for proc in procs:
                 if proc.poll() is None:
-                    proc.kill()
+                    os.killpg(proc.pid, signal.SIGKILL)
                     proc.wait()
         tmp_lib = Path(tmp) / lib.name
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib),

@@ -18,8 +18,14 @@ tile-masked FFN over multi-token rows: x (M, d), token_mask (M, F / block)
 {0, 1} -> (M, d) in x's dtype.  A (token tile x hidden block) cell that no
 token of the tile selected is skipped; live cells re-apply the per-token
 mask, so the output is the per-token masked FFN whatever cells are
-skipped.  `tile_skip_fraction` counts the dead cells of the reference's
-(bm, bf) tiling.
+skipped.  Two paths, picked by `tile_plan` from dtype and shape: in bf16
+with d % 64 == 0 and F % 128 == 0 wgmma tiles fed by TMA through a
+producer warp's ring (cells of 64 or 128 rows x 128 columns; the down
+projection split over F across a cluster, summed in rank order), else
+SIMT tiles (cells of 64 x 64).  `tile_skip_fraction` counts the dead cells of the
+reference's (bm, bf) tiling, `cell_skip_fraction` those of any cells (the
+plan's own); `dsg_ffn_split_plain` is the tensor-core path's F-split
+decomposition in plain PyTorch.
 
 Both round h = silu(x . wg) * (x . wu) to x's dtype before the down
 projection, as in the reference; the down projection then accumulates in
@@ -40,7 +46,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import cuda_lib
 
 GATE_UP_THREADS = 512   # kGateUpThreads in dsg_ffn.cu; block must divide it
-TILE = 64               # kTM = kTN in dsg_ffn.cu: the tile kernel's cells
+TILE = 64               # kTM = kTN in dsg_ffn.cu: the SIMT tile's cells
+TC_ROWS, TC_COLS = 64, 128   # tensor-core path: down-block rows, cell columns
+TC_MAX_CHUNKS = 1024    # kMaxChunks: F / 128 the tensor-core path takes
+TC_STAGES = 4           # kFfnStages: ring stages of the tensor-core path
 SMEM_LIMIT = 48 * 1024  # the lanes path's shared memory
 SM_COUNT = 132          # H100 SXM
 UNION_THREADS = 256     # kThreads: threads of the union path's blocks
@@ -257,6 +266,73 @@ def tile_skip_fraction(token_mask, bm: int, bf: int, block: int) -> float:
     return 1.0 - float((tile > 0).float().mean())
 
 
+def live_cells(token_mask, block: int, rows: int, cols: int):
+    """(ceil(M / rows), ceil(F / cols)) bool: the (rows x cols) cells of the
+    (M, F) hidden activations that some token of the cell's rows selected
+    (a group that the cell's columns touch); ragged edge cells count
+    whole."""
+    m, g = token_mask.shape
+    f = g * block
+    live = token_mask.float().repeat_interleave(block, dim=1) > 0
+    live = F.pad(live, (0, -f % cols, 0, -m % rows))
+    return live.reshape(-(-m // rows), rows, -(-f // cols), cols).any(
+        dim=3).any(dim=1)
+
+
+def cell_skip_fraction(token_mask, rows: int, cols: int,
+                       block: int) -> float:
+    """Share of the (rows x cols) cells that no token of the cell's rows
+    selected: the cells a kernel with those cells skips."""
+    return 1.0 - float(live_cells(token_mask, block, rows, cols)
+                       .float().mean())
+
+
+def tile_tc_smem(rows: int) -> tuple:
+    """Dynamic shared memory of the tensor-core path's (gate/up, down)
+    blocks, as `launch_tile_tc` sizes them: rings of 8 KB tiles (a gate/up
+    stage rows // 64 of x, two of wg and two of wu; a down stage one of h
+    and two of wd), which the down block's f32 partial overlays."""
+    tile = 64 * 64 * 2
+    return (TC_STAGES * (rows // 64 + 4) * tile + 1024,
+            TC_STAGES * 3 * tile + 1024)
+
+
+class TilePlan(NamedTuple):
+    path: str              # "tc" or "simt"
+    rows: int              # tc: token rows of a gate/up block (64 or 128)
+    splits: int            # tc: F splits of the down projection (cluster)
+    cell_rows: int         # the cells whose dead ones are skipped
+    cell_cols: int
+    gate_up_blocks: int
+    down_blocks: int
+
+
+def tile_plan(m: int, d: int, f: int, block: int, dtype) -> TilePlan:
+    """The path of the tile-masked FFN for x (m, d), wg (d, f): bf16 with
+    d % 64 == 0 and f % 128 == 0 takes the wgmma tiles: gate/up blocks of
+    128 token rows (two warpgroups sharing each weight tile) unless M fits
+    in 64, and down blocks of 64 rows with the most F splits (a power of
+    two up to 8) that keep them within one wave of the SMs, one block an
+    SM (the sweep in chip_smoke.py's phase 9); f32 and other shapes take
+    the SIMT tiles.  bf16 rows must be 16-byte multiples (d and f
+    multiples of 8): raises otherwise."""
+    if dtype == torch.bfloat16:
+        if d % 8 or f % 8:
+            raise ValueError(f"dsg_ffn: the bf16 kernels need d and F that "
+                             f"are multiples of 8, got d={d}, F={f}")
+        if d % 64 == 0 and f % TC_COLS == 0 \
+                and f // TC_COLS <= TC_MAX_CHUNKS:
+            rows = 128 if m > 64 else 64
+            tiles = -(-d // TC_COLS) * -(-m // TC_ROWS)
+            splits = max([1] + [s for s in (2, 4, 8)
+                                if tiles * s <= SM_COUNT])
+            return TilePlan("tc", rows, splits, rows, TC_COLS,
+                            -(-m // rows) * (f // TC_COLS), tiles * splits)
+    mt = -(-m // TILE)
+    return TilePlan("simt", TILE, 1, TILE, TILE, mt * -(-f // TILE),
+                    mt * -(-d // TILE))
+
+
 def dsg_ffn_plain(x, wg, wu, wd, token_mask, *, block: int = 128):
     """Plain PyTorch version: the full SwiGLU in f32, the per-token group
     mask applied, h rounded to x's dtype, down projection in f32."""
@@ -268,11 +344,43 @@ def dsg_ffn_plain(x, wg, wu, wd, token_mask, *, block: int = 128):
     return (h.to(x.dtype).float() @ wd.float()).to(x.dtype)
 
 
+def dsg_ffn_split_plain(x, wg, wu, wd, token_mask, *, block: int = 128,
+                        splits: int = 1, rows: int = TC_ROWS):
+    """The tensor-core path's decomposition in plain PyTorch: h as in
+    `dsg_ffn_plain` (rounded to x's dtype); for each 64-row tile the live
+    128-column chunks of F of the `rows`-row cells that hold it, in
+    ascending order, cut into `splits` contiguous runs, each run's f32
+    partial of h @ wd, the partials summed in run order and rounded
+    once."""
+    m = x.shape[0]
+    xf = x.float()
+    h = F.silu(xf @ wg.float()) * (xf @ wu.float())
+    h = (h.reshape(m, -1, block) * token_mask.float()[..., None]).reshape(
+        m, -1).to(x.dtype).float()
+    live = live_cells(token_mask, block, rows, TC_COLS)
+    out = torch.zeros((m, wd.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for t in range(-(-m // TC_ROWS)):
+        rs = slice(t * TC_ROWS, (t + 1) * TC_ROWS)
+        chunks = torch.nonzero(live[t * TC_ROWS // rows]).flatten().tolist()
+        per = -(-len(chunks) // splits)
+        acc = 0.0
+        for c0 in range(0, len(chunks), max(1, per)):
+            cols = torch.cat([torch.arange(c * TC_COLS, (c + 1) * TC_COLS)
+                              for c in chunks[c0:c0 + per]])
+            acc = acc + h[rs][:, cols] @ wd[cols].float()
+        out[rs] = acc
+    return out.to(x.dtype)
+
+
 def dsg_ffn(x, wg, wu, wd, token_mask, *, block: int = 128, bm: int = 128,
             bf: int = 128):
-    """Launch the CUDA kernel (CUDA tensors only; raises otherwise).  The
-    kernel skips dead cells of its own tiling; bm/bf are checked against
-    the reference's contract and change nothing else."""
+    """Launch the CUDA kernels that `tile_plan` picks (CUDA tensors only;
+    raises otherwise).  The kernels skip dead cells of their own tiling;
+    bm/bf are checked against the reference's contract and change nothing
+    else.  The tensor-core path raises unless x, wg, wu and wd start on
+    16-byte boundaries.  `launches` counts every call; `launches_tc` and
+    `launches_simt` those of each path."""
     name = "dsg_ffn"
     m, d = x.shape
     f = wg.shape[1]
@@ -286,19 +394,33 @@ def dsg_ffn(x, wg, wu, wd, token_mask, *, block: int = 128, bm: int = 128,
                          f"wg {tuple(wg.shape)}, wd {tuple(wd.shape)}, "
                          f"token_mask {tuple(token_mask.shape)}, block "
                          f"{block}")
+    p = tile_plan(m, d, f, block, x.dtype)
+    if p.path == "tc":
+        cuda_lib.require_aligned16(name, x=x, wg=wg, wu=wu, wd=wd)
     mask = token_mask.to(torch.float32).contiguous()
-    live = torch.empty((-(-m // TILE), -(-f // TILE)), dtype=torch.int32,
-                       device=dev)
+    live = torch.empty((-(-m // p.cell_rows), -(-f // p.cell_cols)),
+                       dtype=torch.int32, device=dev)
     h = torch.empty((m, f), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
-        cuda_lib.launch(
-            "repro_dsg_ffn_tile", code, x.data_ptr(), wg.data_ptr(),
-            wu.data_ptr(), wd.data_ptr(), mask.data_ptr(), live.data_ptr(),
-            h.data_ptr(), out.data_ptr(), m, d, f, block,
-            cuda_lib.stream(dev))
+        if p.path == "tc":
+            cuda_lib.launch(
+                "repro_dsg_ffn_tile_tc", x.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), mask.data_ptr(),
+                live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+                block, p.rows, p.splits, cuda_lib.stream(dev))
+            dsg_ffn.launches_tc += 1
+        else:
+            cuda_lib.launch(
+                "repro_dsg_ffn_tile", code, x.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), mask.data_ptr(),
+                live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+                block, cuda_lib.stream(dev))
+            dsg_ffn.launches_simt += 1
     dsg_ffn.launches += 1
     return out
 
 
 dsg_ffn.launches = 0
+dsg_ffn.launches_tc = 0
+dsg_ffn.launches_simt = 0

@@ -8,6 +8,8 @@
 
 Serving picks the cache layout through `repro_torch.serving.kv_cache` and
 passes the paged view into decode_step.  Caches are updated in place.
+The entry points that make tensors put them on the card unless the caller
+asks for the CPU (`device="cpu"`); with no card they raise.
 """
 from __future__ import annotations
 
@@ -19,21 +21,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 
-def init_model(cfg: ModelConfig, *, generator: torch.Generator, device=None):
-    return transformer.init_model(cfg, generator=generator, device=device)
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raise if it names CUDA and there is no
+    card, rather than carry on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+def init_model(cfg: ModelConfig, *, generator: torch.Generator,
+               device="cuda"):
+    return transformer.init_model(cfg, generator=generator,
+                                  device=require_device(device))
 
 
 def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
-             device=None) -> Optional[dict]:
+             device="cuda") -> Optional[dict]:
     return transformer.init_dsg(model, cfg, generator=generator,
-                                device=device)
+                                device=require_device(device))
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> dict:
+               device="cuda") -> dict:
     return transformer.init_cache(cfg, batch, max_seq,
                                   dtype or transformer.torch_dtype(cfg),
-                                  device)
+                                  require_device(device))
 
 
 def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,

@@ -362,6 +362,63 @@ def test_drs_scores_on_card(cuda, dtype, m, k, f, block):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
 
+SCORES_PATHS = ("gemv", "tc", "simt")
+
+
+def _scores_inputs(rng, m, k, f, dtype, dev):
+    return (_rand(rng, (m, k), dtype, dev),
+            _rand(rng, (k, f), dtype, dev, 1 / math.sqrt(k)))
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 37, 100, 192, 256])
+def test_drs_scores_paths_on_card(cuda, m, block):
+    """bf16 at the serve shapes (k 256, F 8192) and ragged M: M <= 16 takes
+    the GEMV, larger M the wgmma tiles; each call adds one launch to its
+    path's count and equals the plain version and, for the GEMV, the
+    column-slice decomposition at the plan's slices."""
+    rng = np.random.default_rng(40)
+    bf = torch.bfloat16
+    fx, fw = _scores_inputs(rng, m, 256, 8192, bf, cuda)
+    p = drs_search.scores_plan(m, 256, 8192, block, bf)
+    assert p.path == ("gemv" if m <= 16 else "tc")
+    before = _path_launches(drs_search.drs_scores, SCORES_PATHS)
+    got = drs_search.drs_scores(fx, fw, block=block)
+    after = _path_launches(drs_search.drs_scores, SCORES_PATHS)
+    assert after == {q: n + (q == p.path) for q, n in before.items()}
+    tol = dict(rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(
+        got, drs_search.drs_scores_plain(fx, fw, block=block), **tol)
+    if p.path == "gemv":
+        torch.testing.assert_close(got, drs_search.drs_scores_split_plain(
+            fx, fw, block=block, slices=p.slices), **tol)
+
+
+def _scores_launch(fx, fw, block, path, n):
+    m, k = fx.shape
+    f = fw.shape[1]
+    out = torch.empty((m, f // block), dtype=torch.float32, device=fx.device)
+    cuda_lib.launch(f"repro_drs_scores_{path}", fx.data_ptr(), fw.data_ptr(),
+                    out.data_ptr(), m, k, f, block, n,
+                    cuda_lib.stream(fx.device))
+    return out
+
+
+@pytest.mark.parametrize("path,m,n", [
+    ("gemv", 4, 1), ("gemv", 4, 2), ("gemv", 4, 8), ("gemv", 16, 1),
+    ("tc", 192, 2), ("tc", 192, 3), ("tc", 100, 2), ("tc", 256, 4)])
+def test_drs_scores_sizes_on_card(cuda, path, m, n):
+    """The GEMV at 1, 2 and 8 column slices of a group and the wgmma tiles
+    at 2-4 row tiles a block (one block a group at M = 192), against the
+    plain version."""
+    rng = np.random.default_rng(41)
+    fx, fw = _scores_inputs(rng, m, 256, 8192, torch.bfloat16, cuda)
+    got = _scores_launch(fx, fw, 128, path, n)
+    torch.testing.assert_close(
+        got, drs_search.drs_scores_plain(fx, fw, block=128), rtol=1e-4,
+        atol=1e-3)
+
+
 def _tile_ffn_inputs(rng, m, d, f, block, dtype, dev, density=0.6):
     x = _rand(rng, (m, d), dtype, dev)
     wg = _rand(rng, (d, f), dtype, dev, 1 / math.sqrt(d))
@@ -389,6 +446,80 @@ def test_dsg_ffn_tile_on_card(cuda, dtype, m, d, f, block, bm, bf):
     zeros = dsg_ffn.dsg_ffn(x, wg, wu, wd, torch.zeros_like(mask),
                             block=block, bm=bm, bf=bf)
     assert not zeros.any()
+
+
+TILE_PATHS = ("tc", "simt")
+
+
+def _tile_masks(rng, mask):
+    """Per-token, batch-shared (row 0 for every row), half-dead (the upper
+    half of the groups selected by no token), all-live and all-dead
+    masks."""
+    half = mask.clone()
+    half[:, mask.shape[1] // 2:] = 0
+    return {"per_token": mask, "shared": mask[:1].expand_as(mask).contiguous(),
+            "half_dead": half, "all_live": torch.ones_like(mask),
+            "all_dead": torch.zeros_like(mask)}
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("m", [17, 64, 100, 192, 256])
+def test_dsg_ffn_tile_tc_on_card(cuda, m, block):
+    """The wgmma path at d 512, F 2048 over every mask kind: one launch on
+    the tc path each, equal to the plain version and to the F-split
+    decomposition at the plan's splits; an all-dead mask gives exact
+    zeros."""
+    rng = np.random.default_rng(42)
+    bf = torch.bfloat16
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, m, 512, 2048, block, bf,
+                                           cuda, density=0.1)
+    p = dsg_ffn.tile_plan(m, 512, 2048, block, bf)
+    assert p.path == "tc"
+    for kind, mk in _tile_masks(rng, mask).items():
+        before = _path_launches(dsg_ffn.dsg_ffn, TILE_PATHS)
+        got = dsg_ffn.dsg_ffn(x, wg, wu, wd, mk, block=block, bm=m, bf=block)
+        after = _path_launches(dsg_ffn.dsg_ffn, TILE_PATHS)
+        assert after == {q: n + (q == "tc") for q, n in before.items()}
+        _close(got, dsg_ffn.dsg_ffn_plain(x, wg, wu, wd, mk, block=block),
+               bf)
+        _close(got, dsg_ffn.dsg_ffn_split_plain(x, wg, wu, wd, mk,
+                                                block=block, splits=p.splits,
+                                                rows=p.rows), bf)
+        if kind == "all_dead":
+            assert not got.any()
+
+
+def _tile_tc_launch(x, wg, wu, wd, mask, block, rows, splits):
+    m, d = x.shape
+    f = wg.shape[1]
+    live = torch.empty((-(-m // rows), f // 128), dtype=torch.int32,
+                       device=x.device)
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    cuda_lib.launch("repro_dsg_ffn_tile_tc", x.data_ptr(), wg.data_ptr(),
+                    wu.data_ptr(), wd.data_ptr(), mask.data_ptr(),
+                    live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+                    block, rows, splits, cuda_lib.stream(x.device))
+    return out
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [100, 256])
+def test_dsg_ffn_tile_tc_sizes_on_card(cuda, rows, splits, m):
+    """Gate/up blocks of 64 and 128 rows and 1-8 F splits of the down
+    projection (ragged M and a half-width last column tile included; at 8
+    splits some splits hold no live chunk), against the plain version and
+    the F-split decomposition."""
+    rng = np.random.default_rng(43)
+    bf = torch.bfloat16
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, m, 576, 2048, 128,
+                                           bf, cuda, density=0.2)
+    mask[:, ::3] = 0
+    got = _tile_tc_launch(x, wg, wu, wd, mask, 128, rows, splits)
+    _close(got, dsg_ffn.dsg_ffn_plain(x, wg, wu, wd, mask, block=128), bf)
+    _close(got, dsg_ffn.dsg_ffn_split_plain(x, wg, wu, wd, mask, block=128,
+                                            splits=splits, rows=rows), bf)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -428,9 +559,10 @@ def test_flash_attention_on_card(cuda, dtype, bh, s, t, d, causal, bq, bk):
 
 
 def test_tc_kernels_repeat_bitwise_on_card(cuda):
-    """The split-KV flash kernel, both bf16 drs_project paths, the union
-    CSR FFN and the split paged step sum their splits in a fixed order:
-    two calls give the same bits."""
+    """The split-KV flash kernel, both bf16 drs_project and drs_scores
+    paths, the union CSR FFN, the split paged step and the tensor-core
+    tile FFN sum their splits in a fixed order: two calls give the same
+    bits."""
     rng = np.random.default_rng(9)
     bf = torch.bfloat16
     q = _rand(rng, (16, 256, 128), bf, cuda)
@@ -456,6 +588,18 @@ def test_tc_kernels_repeat_bitwise_on_card(cuda):
     first = _run_paged(paged_attention.paged_decode, args, num_pages=16)
     second = _run_paged(paged_attention.paged_decode, args, num_pages=16)
     assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    for m in (4, 192):
+        fx, fw = _scores_inputs(rng, m, 256, 8192, bf, cuda)
+        assert drs_search.scores_plan(m, 256, 8192, 128, bf).path in (
+            "gemv", "tc")
+        assert torch.equal(drs_search.drs_scores(fx, fw),
+                           drs_search.drs_scores(fx, fw))
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, 256, 2048, 8192, 128, bf,
+                                           cuda)
+    p = dsg_ffn.tile_plan(256, 2048, 8192, 128, bf)
+    assert p.path == "tc" and p.splits > 1
+    assert torch.equal(dsg_ffn.dsg_ffn(x, wg, wu, wd, mask),
+                       dsg_ffn.dsg_ffn(x, wg, wu, wd, mask))
 
 
 def test_tile_kernels_refuse_what_they_cannot_take(cuda):
@@ -474,6 +618,28 @@ def test_tile_kernels_refuse_what_they_cannot_take(cuda):
         dsg_ffn.dsg_ffn(x, wg, wu, wd, mask, block=32, bm=48, bf=64)
     with pytest.raises(ValueError, match="dsg_ffn"):
         dsg_ffn.dsg_ffn(x, wg, wu, wd, mask[:, :2], block=32, bm=32, bf=64)
+    # the bf16 tensor-core paths take no misaligned base and no row that is
+    # not a 16-byte multiple, and launch nothing then
+    bf = torch.bfloat16
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, 64, 128, 256, 64, bf, cuda)
+    fx, fw = _scores_inputs(rng, 32, 64, 256, bf, cuda)
+    before = (dsg_ffn.dsg_ffn.launches, drs_search.drs_scores.launches)
+    for args in ((_unaligned(x), wg, wu, wd), (x, _unaligned(wg), wu, wd),
+                 (x, wg, wu, _unaligned(wd))):
+        with pytest.raises(ValueError, match="16-byte"):
+            dsg_ffn.dsg_ffn(*args, mask, block=64)
+    for args in ((_unaligned(fx), fw), (fx, _unaligned(fw)),
+                 (_unaligned(fx[:4]), fw)):
+        with pytest.raises(ValueError, match="16-byte"):
+            drs_search.drs_scores(*args, block=64)
+    x, wg, wu, wd, mask = _tile_ffn_inputs(rng, 64, 100, 256, 64, bf, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dsg_ffn.dsg_ffn(x, wg, wu, wd, mask, block=64)
+    fx, fw = _scores_inputs(rng, 32, 60, 256, bf, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        drs_search.drs_scores(fx, fw, block=64)
+    assert (dsg_ffn.dsg_ffn.launches,
+            drs_search.drs_scores.launches) == before
 
 
 def _unaligned(t):
@@ -555,8 +721,8 @@ def _smoke_streams(device, dsg_serving):
     cfg = configs.get_smoke_config("internlm2-1.8b")
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(0)
-    model = api.init_model(cfg, generator=gen)
-    dsg = api.init_dsg(model, cfg, generator=gen)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
     model = model.to(device)
     dsg = {k: v.to(device) for k, v in dsg.items()}
     eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,

@@ -47,9 +47,10 @@ def _parts(variant):
     dsg = japi.init_dsg(jax.random.fold_in(key, 1), params, cfg)
     tcfg = bridge.config_from_jax(cfg).replace(paged_attn_kernel="auto",
                                                dsg_ffn_apply="auto")
-    model = bridge.model_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    model = bridge.model_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                  device="cpu")
     tdsg = bridge.dsg_from_jax(
-        None if dsg is None else jax.tree.map(np.asarray, dsg))
+        None if dsg is None else jax.tree.map(np.asarray, dsg), device="cpu")
     return cfg, params, dsg, tcfg, model, tdsg
 
 
@@ -81,7 +82,7 @@ def test_prefill_and_paged_decode_match_reference(variant):
                             collect_drs_scores=collect)
         tout = api.prefill(model, tdsg, tcfg,
                            {"tokens": torch.from_numpy(toks).long()},
-                           api.make_cache(tcfg, 1, MAX_SEQ),
+                           api.make_cache(tcfg, 1, MAX_SEQ, device="cpu"),
                            collect_drs_scores=collect)
         np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]),
                                    **LOGITS)

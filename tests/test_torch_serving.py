@@ -38,9 +38,11 @@ def _port_streams(cfg, params, dsg, dsg_serving):
     tcfg = bridge.config_from_jax(cfg).replace(paged_attn_kernel="auto",
                                                dsg_ffn_apply="auto")
     eng = scheduler.ServingEngine(
-        tcfg, bridge.model_from_jax(jax.tree.map(np.asarray, params), tcfg),
+        tcfg, bridge.model_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu"),
         bridge.dsg_from_jax(None if dsg is None
-                            else jax.tree.map(np.asarray, dsg)),
+                            else jax.tree.map(np.asarray, dsg),
+                            device="cpu"),
         cache_backend="paged", dsg_serving=dsg_serving, **ENGINE)
     reqs = mixed_traffic(cfg)
     for r in reqs:
