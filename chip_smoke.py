@@ -22,7 +22,10 @@ result line):
             and for both DRS kernels the wgmma tiles at every admission
             and the GEMV at every refresh step.
 4. profile — a short full-width serve run under torch.profiler: the
-            device's busy share and device time by kernel.
+            device's busy share and device time by kernel.  The trace must
+            count each serve-path kernel (split paged decode, the union CSR
+            FFN's two kernels, the DRS kernels' wgmma tiles and GEMVs)
+            layers x decode steps, admissions or refresh steps times.
 5. check  — the smoke model's greedy streams on the card (kernels) equal
             those on the CPU (plain versions).
 6. kernels — each kernel against its plain PyTorch version on inputs
@@ -72,6 +75,34 @@ result line):
             through the C entry points (no wrapper counts these launches),
             each output held against the plain version: the measurement
             behind the plans.
+10. chunk — phase 3's engine and 8 requests at decode_chunk 8: each chunk
+            one replay of a CUDA graph, every key captured by warmup_engine
+            first.  Every request finishes ok.  A replay does not call the
+            wrappers, so their counters, set to 0 before the run, hold the
+            eager launches: the DRS kernels' 24 x admissions, on the wgmma
+            path.  The graph cache's captured launches x replays must be
+            paged decode's and the CSR FFN's 24 x 8 x replays, on the split
+            and union paths, and the DRS kernels' 24 x refresh replays, on
+            the GEMV path.  Prints TPOT, TTFT and decode tok/s, the
+            replays, graphs, capture seconds and the graph pool's bytes,
+            and how many streams equal phase 3's (lanes admit at chunk
+            boundaries, and the union CSR FFN sums a lane's down
+            projection in an order that depends on its co-resident lanes,
+            so bf16 streams may part).
+11. bitwise — 4 requests with prompts in one bucket and max_new 32, all
+            admitted at step 0 (the same co-scheduling at any chunk): the
+            bf16 streams of the chunk-8 graphs equal the eager chunk-1
+            streams exactly.
+12. dense — the dense KV backend at full width, chunk 1 and chunk 8, 8
+            requests: every request ok; TPOT and the KV bytes.
+13. profile chunk — phase 4 at chunk 8 with graphs: the busy share beside
+            phase 4's eager one, and phase 4's kernel count, which here
+            shows that the replays ran the kernels: 24 x 8 x replays for
+            the decode kernels, apart from any counter.
+14. check chunk — phase 5 over {dense, paged} x {chunk 1, 8} x {DSG serving
+            off, on (refresh 8)}: the card's smoke-width f32 streams equal
+            the CPU's.
+Phases 10-14 run after phase 5; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -91,7 +122,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 CAPTURE_STEP = 12                  # decode step whose layer-0 call is kept
 TIMING_REPS = 30
-WARM_REPS = 5                      # profiled calls before the timed ones
+WARM_REPS = 10                     # profiled calls before the timed ones:
+                                   # the profiler can drop the events of
+                                   # the first calls after it starts (7
+                                   # of 35 on an H100 80GB HBM3)
 CALL_GAP_NS = 3_000_000            # idle device time that ends a call
 PROFILE_TRIES = 3                  # traces device_ms takes to find a clean one
 # (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
@@ -362,23 +396,68 @@ def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
     return row
 
 
+# the kernels a serve run launches on its planned paths (phase 3 holds
+# the paths), each once per wrapper call, by the calls that launch them
+TRACE_KERNELS = {"paged_split_kernel": "decode",
+                 "csr_gate_up_kernel": "decode", "csr_down_kernel": "decode",
+                 "project_tc_kernel": "admission",
+                 "scores_tc_kernel": "admission",
+                 "project_gemv_kernel": "refresh",
+                 "scores_gemv_kernel": "refresh"}
+
+
+def kernel_id(name: str) -> str:
+    """A device event's kernel name without namespace, template or
+    arguments ("" where it names no `*_kernel`)."""
+    import re
+    m = re.search(r"\b(\w+_kernel)\b", name)
+    return m.group(1) if m else ""
+
+
 def profile_serve(cfg, model, dsg, eng_kw):
-    """A short full-width serve run under torch.profiler: the device's busy
-    time (the union of its kernel and copy intervals) over the window from
-    its first to its last activity, and device time by kernel name.
-    Returns None where the profiler recorded no device activity."""
+    """A short full-width serve run under torch.profiler, after the
+    engine's warm-up outside it: the device's busy time (the union of its
+    kernel and copy intervals) over the window from its first to its last
+    activity, and device time by kernel name.  The trace also counts the
+    serve path's kernels apart from the wrappers' counters: each must have
+    run layers x decode micro-steps (chunk x replays in a chunked engine,
+    whose kernels run inside graph replays), layers x admissions or
+    layers x refresh dispatches times; a trace that misses events (the
+    profiler can drop them) is taken again, up to PROFILE_TRIES times,
+    and none that counts right is fatal.  Returns None where the profiler
+    recorded no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.workload import mixed_requests, run_workload
-    reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 2, prompt_range=(64, 128),
-                          max_new_range=(24, 24))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        stats = run_workload(cfg, model, dsg, reqs, **eng_kw)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return None
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import (mixed_requests, run_engine,
+                                              warmup_engine)
+    counted = []
+    for _ in range(PROFILE_TRIES):
+        reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 2,
+                              prompt_range=(64, 128), max_new_range=(24, 24))
+        eng = ServingEngine(cfg, model, dsg, **eng_kw)
+        warmup_engine(eng, cfg.vocab)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stats = run_engine(eng, reqs)
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if not spans:
+            return None
+        micro = (eng.decode_chunk * stats["graph_replays"]
+                 if eng.graphs is not None else stats["steps"])
+        calls = {"decode": micro, "admission": stats["admissions"],
+                 "refresh": stats["refresh_steps"]}
+        want = {k: cfg.n_layers * calls[by] for k, by in TRACE_KERNELS.items()}
+        got = Counter(kernel_id(name) for _, _, name in spans)
+        got = {k: got[k] for k in TRACE_KERNELS}
+        counted.append(got)
+        if got == want:
+            break
+    else:
+        fail(f"the device traces of the serve run ({eng_kw}) never count "
+             f"the serve path's kernels as expected, {want}: {counted}")
     busy, end, by_name = 0.0, spans[0][0], {}
     for s, e, name in spans:
         busy += max(0.0, e - max(s, end))
@@ -389,12 +468,14 @@ def profile_serve(cfg, model, dsg, eng_kw):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"busy_ms": busy / 1e3, "window_ms": window / 1e3,
             "busy_share": busy / window, "wall_s": stats["wall_s"],
-            "steps": stats["steps"],
+            "steps": stats["steps"], "traces": len(counted),
+            "trace_kernels": got, "calls": calls,
             "by_kernel": [{"name": n[:80], "ms": t / 1e3, "count": c}
                           for n, (t, c) in top]}
 
 
-def smoke_streams(device, dsg_serving):
+def smoke_streams(device, dsg_serving, cache_backend="paged",
+                  decode_chunk=1):
     import torch
     from repro_torch import configs
     from repro_torch.models import api
@@ -409,11 +490,123 @@ def smoke_streams(device, dsg_serving):
     dsg = {k: v.to(device) for k, v in dsg.items()}
     eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
                         prompt_bucket=32, page_size=8,
-                        dsg_serving=dsg_serving)
+                        cache_backend=cache_backend, dsg_serving=dsg_serving,
+                        decode_chunk=decode_chunk)
     for r in mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
                             max_new_range=(3, 9)):
         eng.submit(r)
     return {u: r.output for u, r in eng.run(400).items()}
+
+
+def serve_line(tag, stats) -> str:
+    """One line of a serve run's end-to-end numbers."""
+    ms = {k: 1e3 * stats[k] for k in ("tpot_p50_s", "tpot_p95_s",
+                                      "ttft_p50_s", "ttft_p95_s")}
+    return (f"[{tag}] {stats['ok_requests']} of {stats['requests']} ok, "
+            f"{stats['tokens']} tokens, decode {stats['decode_tok_per_s']:.2f}"
+            f" tok/s; TPOT p50 {ms['tpot_p50_s']:.2f} ms p95 "
+            f"{ms['tpot_p95_s']:.2f} ms; TTFT p50 {ms['ttft_p50_s']:.1f} ms "
+            f"p95 {ms['ttft_p95_s']:.1f} ms; {stats['steps']} micro-steps, "
+            f"{stats['admissions']} admissions, {stats['refresh_steps']} "
+            f"refresh dispatches; KV {stats['cache_bytes'] / 1e9:.3f} GB")
+
+
+def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
+    """Phase 10: the fused decode chunk through CUDA graphs at full width.
+    warmup_engine captures every key; then the kernels' counters are set
+    to 0 and the requests run.  A replay runs its kernels without calling
+    the wrappers, so their counters now hold the eager launches (the DRS
+    kernels' at admission, on the tc path) and what any capture made
+    during the run recorded.  The graph cache's captured launches x
+    replays must give paged decode and the CSR FFN layers x chunk x
+    replays, on the split and union paths, and the DRS kernels layers x
+    refresh replays, on the GEMV path.  Phase 13 counts the same kernels
+    in a device trace, apart from any counter.  Returns (stats, launches
+    by kernel, graph accounting, streams)."""
+    import torch
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import run_engine, warmup_engine
+    eng = ServingEngine(cfg, model, dsg, **eng_kw)
+    t0 = time.perf_counter()
+    warmup_engine(eng, cfg.vocab)
+    warm_s = time.perf_counter() - t0
+    graphs = eng.graphs
+    if graphs is None:
+        fail("a chunked engine on the card has no graph cache")
+    warmed = set(graphs.graphs)
+    paths = {"paged_decode": ("split", "decode"),
+             "dsg_ffn_csr": ("union", "decode"),
+             "drs_project": ("gemv", "refresh"),
+             "drs_scores": ("gemv", "refresh")}
+    names = ["launches"] + [f"launches_{p}" for p in ("split", "union",
+                                                      "gemv", "tc")]
+    for w in wrappers.values():
+        for name in [n for n in vars(w) if n.startswith("launches")]:
+            setattr(w, name, 0)
+    stats = run_engine(eng, requests)
+    torch.cuda.synchronize()
+    new_keys = [k for k in graphs.graphs if k not in warmed]
+
+    def counts(n, name):
+        w = wrappers[n]
+        recorded = sum(graphs.captured[k].get((w, name), 0)
+                       for k in new_keys)
+        return {"eager": getattr(w, name, 0) - recorded,
+                "replayed": graphs.launches(w, name)}
+    got = {n: {name: counts(n, name) for name in names} for n in wrappers}
+    replays = sum(graphs.replays.values())
+    chunk = eng_kw["decode_chunk"]
+    calls = {"decode": chunk * replays, "refresh": stats["refresh_steps"]}
+    admitted = cfg.n_layers * stats["admissions"]
+    for n, (path, by) in paths.items():
+        if n not in got:
+            continue
+        replayed = cfg.n_layers * calls[by]
+        eager = admitted if by == "refresh" else 0
+        want = {"eager": eager, "replayed": replayed}
+        if got[n]["launches"] != want or replayed == 0:
+            fail(f"{n}: {got[n]['launches']} launches, expected {want}: "
+                 f"{cfg.n_layers} layers x {chunk} micro-steps x {replays} "
+                 f"replays (decode kernels), {cfg.n_layers} x refresh "
+                 f"replays replayed and {cfg.n_layers} x admissions eager "
+                 f"(DRS kernels)")
+        if got[n][f"launches_{path}"]["replayed"] != replayed or (
+                eager and got[n]["launches_tc"]["eager"] != eager):
+            fail(f"{n} took {got[n]} by path; the replays must take the "
+                 f"{path} path and the admissions tc")
+    launches = {n: sum(got[n]["launches"].values()) for n in got}
+    acct = {"replays": replays, "graphs_captured": len(graphs.graphs),
+            "captured_in_run": len(new_keys),
+            "capture_s": graphs.capture_seconds,
+            "warmup_s": warm_s, "pool_bytes": graphs.pool_bytes,
+            "launches": launches,
+            "by_path": {n: {name: c for name, c in g.items()
+                            if any(c.values())} for n, g in got.items()},
+            "replays_by_key": {str(k): v for k, v in graphs.replays.items()},
+            "captured_by_key": {
+                str(key): {w.__name__: c for (w, n), c in cap.items()
+                           if n == "launches"}
+                for key, cap in graphs.captured.items()}}
+    if stats["requests"] != len(requests) or \
+            stats["ok_requests"] != len(requests):
+        fail(f"not every chunked request finished ok: {stats}")
+    streams = {u: list(r.output) for u, r in eng.done.items()}
+    return stats, launches, acct, streams
+
+
+def fixed_lane_streams(cfg, model, dsg, eng_kw, chunk):
+    """Phase 11: 4 requests whose prompts share one bucket (100-120 tokens,
+    bucket 128) with max_new 32, all admitted at step 0 into 4 lanes, so
+    the co-scheduling at chunk 1 and chunk `chunk` is the same."""
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import mixed_requests, run_engine
+    eng = ServingEngine(cfg, model, dsg, **dict(eng_kw, decode_chunk=chunk))
+    reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 4,
+                          prompt_range=(100, 120), max_new_range=(32, 32))
+    stats = run_engine(eng, reqs)
+    if stats["ok_requests"] != 4 or eng.admissions != 4:
+        fail(f"the fixed-lane run at chunk {chunk} did not finish: {stats}")
+    return {u: list(r.output) for u, r in eng.done.items()}
 
 
 def capture_layer0(cfg, model, dsg, tokens):
@@ -923,7 +1116,9 @@ def main() -> int:
                                      paged_attention)
     from repro_torch.models import api
     from repro_torch.serving.dsg_runtime import DSGServingConfig
-    from repro_torch.serving.workload import mixed_requests, run_workload
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import (mixed_requests, run_engine,
+                                              warmup_engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -948,13 +1143,12 @@ def main() -> int:
           f"F={cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params "
           f"in {cfg.dtype}, init {time.perf_counter() - t0:.2f}s",
           flush=True)
-    eng_kw = dict(n_slots=4, max_seq=512, prompt_bucket=256, page_size=16,
+    eng_kw = dict(n_slots=4, max_seq=512, prompt_bucket=256,
+                  cache_backend="paged", page_size=16,
                   dsg_serving=DSGServingConfig(refresh_interval=8))
-    # one-time CUDA/cuBLAS set-up outside the measured run
-    run_workload(cfg, model, dsg,
-                 mixed_requests(cfg.vocab, 2, seed=SEED + 1,
-                                prompt_range=(8, 16), max_new_range=(4, 4)),
-                 **eng_kw)
+    # every prompt bucket and CUDA's one-time set-up outside the measured run
+    eng = ServingEngine(cfg, model, dsg, **eng_kw)
+    warmup_engine(eng, cfg.vocab)
     kernels = {"paged_decode": (paged_attention.paged_decode,
                                 "paged_decode_attention"),
                "dsg_ffn_csr": (dsg_ffn.dsg_ffn_csr, "dsg_ffn_csr"),
@@ -997,9 +1191,7 @@ def main() -> int:
             wrapper.launches = 0
             for p in paths.get(name, (None, ()))[1]:
                 setattr(wrapper, f"launches_{p}", 0)
-        stats = run_workload(cfg, model, dsg,
-                             mixed_requests(cfg.vocab, 8, seed=SEED),
-                             **eng_kw)
+        stats = run_engine(eng, mixed_requests(cfg.vocab, 8, seed=SEED))
         launches = {n: w.launches for n, (w, _) in kernels.items()}
         by_path = {n: {p: getattr(kernels[n][0], f"launches_{p}")
                        for p in ps} for n, (_, ps) in paths.items()}
@@ -1015,8 +1207,11 @@ def main() -> int:
           f"{stats['cache_bytes'] / 1e9:.3f} GB; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     print("[serve] stats " + json.dumps(stats), flush=True)
+    print(serve_line("serve", stats), flush=True)
     if stats["requests"] != 8 or stats["ok_requests"] != 8:
         fail(f"not every request finished ok: {stats}")
+    streams3 = {u: list(r.output) for u, r in eng.done.items()}
+    del eng
     by_shape = {"admission": cfg.n_layers * stats["admissions"],
                 "refresh": cfg.n_layers * stats["refresh_steps"]}
     want = {"paged_decode": cfg.n_layers * stats["steps"],
@@ -1062,8 +1257,10 @@ def main() -> int:
         if by_path[name][path] != launches[name]:
             fail(f"{name} took {by_path[name]} by path on the serve run; "
                  f"every launch must take the {path} path")
+    print(f"[phase 3] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 4. where the device time goes in a short serve run
+    t0 = time.perf_counter()
     prof = profile_serve(cfg, model, dsg, eng_kw)
     if prof is None:
         print("[profile] device time not measured: the profiler recorded "
@@ -1075,18 +1272,103 @@ def main() -> int:
               f"{prof['steps']} decode steps, wall "
               f"{prof['wall_s']:.3f} s under the profiler", flush=True)
         print("[profile] " + json.dumps(prof), flush=True)
+    print(f"[phase 4] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 5. smoke-width streams: kernels on the card vs plain versions on CPU
+    t0 = time.perf_counter()
     for scfg in (None, DSGServingConfig(refresh_interval=2)):
         on_card = smoke_streams(dev, scfg)
         if on_card != smoke_streams(torch.device("cpu"), scfg) \
                 or len(on_card) != 6:
             fail(f"smoke streams on the card differ from the CPU "
                  f"(dsg_serving={scfg})")
-    print("[check] smoke-width greedy streams on the card equal the CPU's "
-          "(DSG serving off and on)", flush=True)
+    print(f"[check] smoke-width greedy streams on the card equal the CPU's "
+          f"(DSG serving off and on); {time.perf_counter() - t0:.2f}s",
+          flush=True)
+
+    # 10-14. this slice's paths: the fused decode chunk as CUDA graph
+    # replays, the dense backend, and both at smoke width against the CPU
+    chunk = 8
+    kw8 = dict(eng_kw, decode_chunk=chunk)
+    wrappers = {n: w for n, (w, _) in kernels.items()}
+    t0 = time.perf_counter()
+    stats8, launches8, acct8, streams8 = chunked_serve(
+        cfg, model, dsg, kw8, wrappers, mixed_requests(cfg.vocab, 8,
+                                                       seed=SEED))
+    same = sum(streams8[u] == streams3[u] for u in streams3)
+    print(serve_line(f"chunk{chunk}/paged", stats8), flush=True)
+    print(f"[chunk{chunk}/paged] {acct8['replays']} replays of "
+          f"{acct8['graphs_captured']} graphs ({acct8['captured_in_run']} "
+          f"captured during the run), capture {acct8['capture_s']:.2f} s in "
+          f"a {acct8['warmup_s']:.2f} s warm-up, graph pool "
+          f"{acct8['pool_bytes'] / 1e6:.1f} MB; launches {launches8} "
+          f"(captured x replays, and the admissions' eager DRS launches); "
+          f"{same} of {len(streams3)} streams equal "
+          f"the eager serve's; {time.perf_counter() - t0:.2f}s", flush=True)
+    print("[chunked] stats " + json.dumps(dict(stats8, **acct8)), flush=True)
+
+    t0 = time.perf_counter()
+    eager4 = fixed_lane_streams(cfg, model, dsg, eng_kw, 1)
+    graph4 = fixed_lane_streams(cfg, model, dsg, eng_kw, chunk)
+    if eager4 != graph4:
+        fail(f"fixed-lane bf16 streams of the chunk-{chunk} graphs differ "
+             f"from the eager chunk-1 streams: {eager4} vs {graph4}")
+    print(f"[bitwise] 4 fixed lanes x 32 tokens: the chunk-{chunk} graphs' "
+          f"bf16 streams equal the eager chunk-1 streams; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    dense_stats = {}
+    for c in (1, chunk):
+        t0 = time.perf_counter()
+        kw = dict(eng_kw, cache_backend="dense", decode_chunk=c)
+        eng_d = ServingEngine(cfg, model, dsg, **kw)
+        warmup_engine(eng_d, cfg.vocab)
+        st = run_engine(eng_d, mixed_requests(cfg.vocab, 8, seed=SEED))
+        if st["ok_requests"] != 8:
+            fail(f"dense chunk {c}: not every request finished ok: {st}")
+        same = sum(list(eng_d.done[u].output) == streams3[u]
+                   for u in streams3)
+        dense_stats[c] = dict(st, equal_to_paged_eager=same)
+        del eng_d
+        print(serve_line(f"dense/chunk{c}", st) + f"; {same} of 8 streams "
+              f"equal the paged eager serve's; "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+    print("[dense] stats " + json.dumps(dense_stats), flush=True)
+
+    t0 = time.perf_counter()
+    prof8 = profile_serve(cfg, model, dsg, kw8)
+    if prof8 is None:
+        fail(f"the profiler recorded no device activity at chunk {chunk}: "
+             f"the replays' kernels cannot be counted")
+    eager_share = ("not measured" if prof is None
+                   else f"{100 * prof['busy_share']:.1f}%")
+    print(f"[profile chunk{chunk}] device busy {prof8['busy_ms']:.3f} ms "
+          f"of a {prof8['window_ms']:.3f} ms window "
+          f"({100 * prof8['busy_share']:.1f}%; eager chunk 1: "
+          f"{eager_share}), {prof8['steps']} micro-steps, wall "
+          f"{prof8['wall_s']:.3f} s; the trace ran {prof8['trace_kernels']} "
+          f"for {prof8['calls']} calls x {cfg.n_layers} layers; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"[profile chunk{chunk}] " + json.dumps(prof8), flush=True)
+
+    t0 = time.perf_counter()
+    combos = 0
+    for backend in ("dense", "paged"):
+        for c in (1, chunk):
+            for scfg in (None, DSGServingConfig(refresh_interval=8)):
+                on_card = smoke_streams(dev, scfg, backend, c)
+                if on_card != smoke_streams(torch.device("cpu"), scfg,
+                                            backend, c) or len(on_card) != 6:
+                    fail(f"smoke streams on the card differ from the CPU "
+                         f"({backend}, chunk {c}, dsg_serving={scfg})")
+                combos += 1
+    print(f"[check] smoke-width greedy streams on the card equal the CPU's "
+          f"in all {combos} of {{dense, paged}} x {{chunk 1, {chunk}}} x "
+          f"{{DSG serving off, on}}; {time.perf_counter() - t0:.2f}s",
+          flush=True)
 
     # 6. kernels against their plain versions
+    t0 = time.perf_counter()
     specs = [
         ("paged_decode", paged_attention.paged_decode,
          paged_attention.paged_decode_plain, paged_cost, None,
@@ -1136,7 +1418,7 @@ def main() -> int:
                                           torch.bfloat16)))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     **row})
+                     f"launches_chunk{chunk}": launches8[name], **row})
         for label, r in shapes.items():
             lib = ("" if r["library_ms"] is None else
                    f", library {r['library_ms']:.4f} ms (span "
@@ -1159,6 +1441,7 @@ def main() -> int:
                   f"{r['bound_ms']:.5f} ms by {r['bound_by']}), max abs err "
                   f"bf16 {r['max_abs_err']:.3g} f32 "
                   f"{r['max_abs_err_f32']:.3g}", flush=True)
+    print(f"[phase 6] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 7-8. the tile-masked FFN and flash attention, each through its ops
     # entry point with its own launch counts, on layer 0's operands of a
@@ -1175,6 +1458,7 @@ def main() -> int:
     print(f"[phases 7-8] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 9. the split counts around the plans' choices
+    t0 = time.perf_counter()
     sweep = split_sweep(cases, *captures["drs_project"].args)
     rows[-1]["split_sweep"] = {n: r for n, r in sweep.items()
                                if n.startswith("flash")}
@@ -1193,6 +1477,7 @@ def main() -> int:
     ffn_row["split_sweep"] = tile_sweep(
         x_ffn, ffn.w_gate.data, ffn.w_up.data, ffn.w_down.data, ffn_mask,
         cfg.dsg.block)
+    print(f"[phase 9] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,9 +28,12 @@ def csr_to_dense(idx: torch.Tensor, counts: torch.Tensor,
     """(idx (..., K), counts (...,)) -> dense {0,1} float32 mask (..., G).
     Padded entries (positions >= count) are ignored, whatever they hold."""
     k = idx.shape[-1]
-    valid = (torch.arange(k, device=idx.device)
-             < counts[..., None]).to(torch.float32)
+    # a listed index outside [0, G) adds nothing, as the reference's
+    # one-hot gives it no column
+    valid = ((torch.arange(k, device=idx.device) < counts[..., None])
+             & (idx >= 0) & (idx < n_groups))
     dense = torch.zeros(idx.shape[:-1] + (n_groups,), dtype=torch.float32,
                         device=idx.device)
-    dense.scatter_add_(-1, idx.long(), valid)
+    dense.scatter_add_(-1, torch.where(valid, idx, 0).long(),
+                       valid.to(torch.float32))
     return dense.clamp_(max=1.0)

@@ -126,16 +126,17 @@ def csr_plan(b: int, d: int, f: int, k: int, block: int, dtype) -> CsrPlan:
 def dsg_ffn_csr_plain(x, wg, wu, wd, idx, counts, *, block: int = 128):
     """Plain PyTorch version: gather each lane's listed column blocks,
     SwiGLU in f32, h rounded to x's dtype, zero the padded slots, down
-    projection accumulated in f32."""
+    projection accumulated in f32.  Padded slots (j >= counts) read group 0
+    in place of whatever they hold, so padding of any value is ignored."""
     b, d = x.shape
     k = idx.shape[1]
-    cols = (idx.long()[..., None] * block
+    valid = torch.arange(k, device=x.device) < counts[:, None]
+    cols = (torch.where(valid, idx, 0).long()[..., None] * block
             + torch.arange(block, device=x.device)).reshape(b, k * block)
     xf = x.float()
     g = torch.einsum("bd,bdm->bm", xf, wg[:, cols].permute(1, 0, 2).float())
     u = torch.einsum("bd,bdm->bm", xf, wu[:, cols].permute(1, 0, 2).float())
     h = (F.silu(g) * u).to(x.dtype).float()
-    valid = torch.arange(k, device=x.device) < counts[:, None]
     h = h * valid.repeat_interleave(block, dim=1)
     return torch.einsum("bm,bmd->bd", h, wd[cols].float()).to(x.dtype)
 

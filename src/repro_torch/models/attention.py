@@ -3,8 +3,9 @@
 Weights keep the reference layout: wq (d, H, D), wk/wv (d, Kv, D),
 wo (H, D, d).  Two cache kinds reach `self_attention`:
 
-  * a dense 1-lane cache {'k', 'v'} of (B, Smax, Kv, D) during prefill,
-    written in place at `cache_pos`;
+  * a dense cache {'k', 'v'} of (B, Smax, Kv, D), written in place: at
+    the int `cache_pos` onwards during prefill, at each lane's own
+    position of the (B,) `cache_pos` during decode;
   * the paged pools {'k', 'v'} of (P, ps, Kv, D) plus a page table during
     decode, updated in place by the paged executor.
 """
@@ -85,8 +86,7 @@ def attend_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = m[:, None] if m.ndim == 3 else m[None, None]
     if bf16_scores and q.dtype == torch.bfloat16:
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-        s = torch.where(m, s, torch.tensor(NEG, dtype=torch.bfloat16,
-                                           device=s.device))
+        s = torch.where(m, s, NEG)
         mx = s.float().amax(dim=-1, keepdim=True)
         p = torch.exp(s.float() - mx)
         p = (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
@@ -120,8 +120,10 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     """Self-attention over x (B, S, d) -> (out, cache).
 
     cache=None: attend over the S new tokens; returns their K/V.
-    Dense cache (prefill): the new K/V go to positions cache_pos (an int)
-    onwards and the tokens attend over the cache up to their end.
+    Dense cache: with an int cache_pos (prefill) the new K/V go to
+    positions cache_pos onwards and the tokens attend over the cache up to
+    their end; with per-lane (B,) depths (decode, S == 1) each lane writes
+    at its depth and attends over the whole cache, causally masked.
     Paged decode (page_table given): cache holds one layer's page pools,
     cache_pos the per-lane (B,) int32 depths, S == 1.
     `ops.paged_decode_attention` (the CUDA kernel, or its plain bounded
@@ -151,11 +153,24 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
             v_new[:, 0].contiguous(), cache["k"], cache["v"], page_table,
             cache_pos, window=window, num_pages=live_pages or 0)
         return _out(o[:, None], p.wo), cache
-    else:
-        if not isinstance(cache_pos, int):
+    elif torch.is_tensor(cache_pos):
+        # per-lane dense decode: lane i writes its token at its own
+        # position, then attends over the whole stripe under the causal
+        # mask (an index write and no read-back, so it can be captured).
+        # The write index is clamped into the stripe, as the reference's
+        # dynamic_update_slice clamps it: a fused chunk whose lanes are all
+        # done feeds them the donor's position, which can be max_seq
+        if s != 1 or cache_pos.ndim != 1:
             raise NotImplementedError(
-                "the dense cache takes a scalar write position (prompt "
-                "prefill); per-lane dense decode is not ported")
+                "the dense cache takes per-lane single-token decode or a "
+                "scalar write position")
+        lanes = torch.arange(x.shape[0], device=x.device)
+        pos = cache_pos.long().clamp(0, cache["k"].shape[1] - 1)
+        cache["k"][lanes, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][lanes, pos] = v_new[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+    else:
         end = cache_pos + s
         cache["k"][:, cache_pos:end] = k_new.to(cache["k"].dtype)
         cache["v"][:, cache_pos:end] = v_new.to(cache["v"].dtype)

@@ -45,14 +45,16 @@ def as_serving_config(value) -> Optional[DSGServingConfig]:
                     f"got {type(value).__name__}")
 
 
-def mirror_csr(csr: dict, free_mask: torch.Tensor, donor: int) -> dict:
-    """Overwrite free lanes' CSR rows with the donor lane's.
+def mirror_csr(csr: dict, free_mask: torch.Tensor,
+               donor: torch.Tensor) -> dict:
+    """Overwrite free lanes' CSR rows with the donor lane's (donor a (1,)
+    long tensor, so nothing is read back).
     csr = {'idx': (L, B, K), 'counts': (L, B)}."""
     idx, counts = csr["idx"], csr["counts"]
     return {"idx": torch.where(free_mask[None, :, None],
-                               idx[:, donor:donor + 1], idx).contiguous(),
+                               idx.index_select(1, donor), idx).contiguous(),
             "counts": torch.where(free_mask[None, :],
-                                  counts[:, donor:donor + 1], counts)}
+                                  counts.index_select(1, donor), counts)}
 
 
 class DSGRuntime:
@@ -128,6 +130,11 @@ class DSGRuntime:
         mc = (int(self.counts[:, self.lane_active].max())
               if self.lane_active.any() else 1)
         return sparse_mask.active_group_bound(mc, self.n_groups)
+
+    def warm_bounds(self) -> tuple:
+        """The CSR bounds warm_decode runs: per-lane top-k pins every lane
+        at `keep` groups (up to score ties), so one bucket suffices."""
+        return (sparse_mask.active_group_bound(self.keep, self.n_groups),)
 
     def device_csr(self, bound: int) -> dict:
         """The pattern state sliced to `bound` on the device, with counts

@@ -1,23 +1,27 @@
-"""Paged KV-cache backend behind a `CacheHandle`.
+"""KV-cache backends behind a `CacheHandle`: dense and paged.
 
-    backend = PagedBackend(page_size=16, total_tokens=512)
+    backend = get_backend("paged", page_size=16, total_tokens=512)
     handle  = backend.make(cfg, n_slots, max_seq, device)
     handle  = backend.write(handle, lane_kv, slot, n_tokens=pb,
                             reserve_tokens=need)      # admission splice
     handle  = backend.ensure(handle, slot, pos)     # growth while decoding
+    handle  = backend.ensure_range(handle, slot, start, stop)  # a chunk
     handle  = backend.free(handle, slot)            # retirement
 
-Layout:
+Layouts:
 
-    pages_k / pages_v : (L, n_pages, page_size, Kv, D)   physical pools
-    page_table        : (n_slots, max_seq // page_size)  int32
+    dense : k / v (L, n_slots, max_seq, Kv, D); each lane owns its stripe
+    paged : pages_k / pages_v (L, n_pages, page_size, Kv, D) physical
+            pools, page_table (n_slots, max_seq // page_size) int32
 
-A host-side refcounting `BlockAllocator` hands out physical pages.  Page 0
+Every device tensor of a handle is allocated once, by `make`, and written
+in place from then on (JAX donates the buffers and gets new ones back), so
+a CUDA graph captured over a decode chunk keeps reading the live cache.
+A host-side refcounting `BlockAllocator` hands out physical pages; page 0
 is a reserved scratch page that unallocated table entries point at.  The
-pools are written in place (JAX donates the buffers and gets new ones
-back); the host numpy mirror of the page table is the source of truth and
-every change pushes a fresh device copy.  Prefix sharing and the dense
-backend are not ported yet (ROADMAP.md).
+host numpy page table is the source of truth, and every change is copied
+into the one persistent device table.  Prefix sharing is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -96,14 +100,69 @@ class BlockAllocator:
 
 
 def decode_view(handle: CacheHandle, free_mask: torch.Tensor,
-                donor: int) -> dict:
-    """The decode step's view of a paged handle: free lanes take the donor
-    lane's page-table row, so they read the donor's K/V and write the
+                donor: torch.Tensor) -> dict:
+    """The decode step's view of a handle.  Paged: free lanes take the
+    donor lane's page-table row, so they read the donor's K/V and write the
     donor's own new row to the donor's pages as identical duplicates —
-    decode stays deterministic and never touches the scratch page."""
+    decode stays deterministic and never touches the scratch page.  Dense:
+    the cache itself (a free lane writes into its own stripe, which the
+    next admission overwrites whole).  donor is a (1,) long tensor, so the
+    view reads no value back to the host."""
+    if handle.kind != "paged":
+        return handle.data
     pt = handle.data["page_table"]
-    pt = torch.where(free_mask[:, None], pt[donor], pt)
+    pt = torch.where(free_mask[:, None], pt.index_select(0, donor), pt)
     return {**handle.data, "page_table": pt}
+
+
+def dense_merge(cache: dict, lane: dict, slot: int) -> None:
+    """Copy a 1-lane dense cache into lane `slot` of the batched cache, in
+    place.  The FULL sequence extent is written (not just the prompt), so
+    stale K/V of a retired request can never reach the new occupant."""
+    for name in ("k", "v"):
+        cache[name][:, slot] = lane[name][:, 0].to(cache[name].dtype)
+
+
+class _Backend:
+    """What both layouts share."""
+
+    def resident_bytes(self, handle: CacheHandle) -> int:
+        return sum(t.numel() * t.element_size() for t in handle.data.values())
+
+
+class DenseBackend(_Backend):
+    """Worst-case dense layout: every cache leaf is (L, n_slots, Smax, ...).
+
+    Admission is a lane-to-lane copy; `free`/`ensure` are no-ops (each lane
+    permanently owns its Smax stripe)."""
+
+    kind = "dense"
+    page_size = 0
+
+    def make(self, cfg, n_slots: int, max_seq: int, device,
+             dtype=None) -> CacheHandle:
+        return CacheHandle(transformer.init_cache(
+            cfg, n_slots, max_seq, dtype or transformer.torch_dtype(cfg),
+            device), "dense", 0)
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return True
+
+    def write(self, handle: CacheHandle, slot_kv: dict, slot: int, *,
+              n_tokens: Optional[int] = None,
+              reserve_tokens: Optional[int] = None) -> CacheHandle:
+        dense_merge(handle.data, slot_kv, slot)
+        return handle
+
+    def ensure(self, handle: CacheHandle, slot: int, pos: int) -> CacheHandle:
+        return handle
+
+    def ensure_range(self, handle: CacheHandle, slot: int, start: int,
+                     stop: int) -> CacheHandle:
+        return handle
+
+    def free(self, handle: CacheHandle, slot: int) -> CacheHandle:
+        return handle
 
 
 def _paged_merge(pools: dict, lane: dict, pp: torch.Tensor) -> None:
@@ -119,7 +178,7 @@ def _paged_merge(pools: dict, lane: dict, pp: torch.Tensor) -> None:
         pool[:, pp] = chunks.to(pool.dtype)
 
 
-class PagedBackend:
+class PagedBackend(_Backend):
     """Fixed-size pages, a per-lane page table and a host allocator.
 
     The pool holds `total_tokens` worth of pages (default: the dense worst
@@ -160,19 +219,16 @@ class PagedBackend:
         self._table = np.full((n_slots, self.max_pages), NULL_PAGE, np.int32)
         self._resv = np.zeros(n_slots, np.int64)
         self._device = torch.device(device)
+        self._dev_table = torch.from_numpy(self._table.copy()).to(
+            self._device)
         return CacheHandle({"pages_k": pool["k"], "pages_v": pool["v"],
-                            "page_table": self._device_table()},
+                            "page_table": self._dev_table},
                            "paged", self.page_size)
 
-    def _device_table(self) -> torch.Tensor:
-        return torch.from_numpy(self._table.copy()).to(self._device)
-
-    def _with_table(self, handle: CacheHandle) -> CacheHandle:
-        return CacheHandle({**handle.data, "page_table": self._device_table()},
-                           "paged", self.page_size)
-
-    def resident_bytes(self, handle: CacheHandle) -> int:
-        return sum(t.numel() * t.element_size() for t in handle.data.values())
+    def _push_table(self, handle: CacheHandle) -> CacheHandle:
+        """Copy the host table into the persistent device table."""
+        self._dev_table.copy_(torch.from_numpy(self._table))
+        return handle
 
     def can_admit(self, n_tokens: int) -> bool:
         return (self.allocator.free_pages - int(self._resv.sum())
@@ -193,7 +249,7 @@ class PagedBackend:
         self._resv[slot] = need - n_lp
         _paged_merge(handle.data, slot_kv,
                      torch.tensor(pp, dtype=torch.long, device=self._device))
-        return self._with_table(handle)
+        return self._push_table(handle)
 
     def ensure(self, handle: CacheHandle, slot: int, pos: int) -> CacheHandle:
         """Map the page covering a write at `pos` (no-op when mapped)."""
@@ -203,12 +259,30 @@ class PagedBackend:
         (pg,) = self.allocator.alloc(1)
         self._table[slot, lp] = pg
         self._resv[slot] = max(int(self._resv[slot]) - 1, 0)
-        return self._with_table(handle)
+        return self._push_table(handle)
+
+    def ensure_range(self, handle: CacheHandle, slot: int, start: int,
+                     stop: int) -> CacheHandle:
+        """Map every page covering writes in [start, stop): a fused decode
+        chunk's pages, mapped ahead of it since its micro-steps cannot grow
+        the table mid-dispatch, and copied to the device once.  The caller
+        clamps `stop` to the lane's budget, so the mapping stays inside its
+        admission-time reservation."""
+        grew = False
+        for lp in range(start // self.page_size,
+                        (stop - 1) // self.page_size + 1):
+            if self._table[slot, lp] != NULL_PAGE:
+                continue
+            (pg,) = self.allocator.alloc(1)
+            self._table[slot, lp] = pg
+            self._resv[slot] = max(int(self._resv[slot]) - 1, 0)
+            grew = True
+        return self._push_table(handle) if grew else handle
 
     def free(self, handle: CacheHandle, slot: int) -> CacheHandle:
         """Return lane `slot`'s pages to the free list (retirement)."""
         self._release(slot)
-        return self._with_table(handle)
+        return self._push_table(handle)
 
     def _release(self, slot: int) -> None:
         pages = [int(p) for p in self._table[slot] if p != NULL_PAGE]
@@ -216,3 +290,13 @@ class PagedBackend:
             self.allocator.free(pages)
         self._table[slot] = NULL_PAGE
         self._resv[slot] = 0
+
+
+def get_backend(name: str, *, page_size: int = 16,
+                total_tokens: Optional[int] = None):
+    """Factory: "dense" -> DenseBackend, "paged" -> PagedBackend."""
+    if name == "dense":
+        return DenseBackend()
+    if name == "paged":
+        return PagedBackend(page_size=page_size, total_tokens=total_tokens)
+    raise ValueError(f"unknown cache backend {name!r} (dense or paged)")

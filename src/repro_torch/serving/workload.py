@@ -1,6 +1,7 @@
 """Synthetic mixed-length serving traffic and the single-engine measurement
 harness (`launch/serve.py --workload mixed` and `chip_smoke.py` drive the
-engine through here)."""
+engine through here): `warmup_engine` reaches every shape first, then
+`run_engine` measures; `run_workload` is the two in one."""
 from __future__ import annotations
 
 import time
@@ -54,20 +55,32 @@ def latency_stats(done: Dict[int, Request]) -> Dict[str, float]:
     return stats
 
 
-def run_workload(cfg, model, dsg, requests: List[Request], *,
-                 n_slots: int = 4, max_seq: int = 384,
-                 prompt_bucket: int = 256, page_size: int = 16,
-                 cache_tokens=None, dsg_serving=None,
-                 max_steps: int = 100_000) -> Dict[str, float]:
-    """Run the requests through one paged ServingEngine on the model's
-    device and return throughput/latency stats.  The clock stops after a
-    device synchronisation.  There is no warm-up pass: PyTorch compiles
-    nothing per shape, so a caller that wants steady-state numbers runs a
-    short workload first to pay the one-time CUDA set-up."""
-    eng = ServingEngine(cfg, model, dsg, n_slots=n_slots, max_seq=max_seq,
-                        prompt_bucket=prompt_bucket, cache_backend="paged",
-                        page_size=page_size, cache_tokens=cache_tokens,
-                        dsg_serving=dsg_serving)
+def warmup_engine(eng: ServingEngine, vocab: int,
+                  max_steps: int = 100_000) -> None:
+    """Reach every shape a measured run can hit, then reset the engine's
+    counters: one throwaway request per prompt bucket (the prefill shapes,
+    the decode step and CUDA's own one-time set-up), then `warm_decode`,
+    which captures every fused-chunk graph of a chunked engine on the
+    card.  The kernels' launch counters are the caller's to reset."""
+    rng = np.random.default_rng(12345)
+    for i, b in enumerate(eng.buckets):
+        eng.submit(Request(uid=-1 - i,
+                           prompt=rng.integers(0, vocab, b, dtype=np.int32),
+                           max_new=2))
+    eng.run(max_steps=max_steps)
+    eng.warm_decode()
+    eng.done.clear()
+    eng.steps = eng.admissions = eng.refresh_steps = 0
+    eng.decode_seconds = 0.0
+    eng.decode_tokens = 0
+    if eng.graphs is not None:
+        eng.graphs.replays.clear()
+
+
+def run_engine(eng: ServingEngine, requests: List[Request], *,
+               max_steps: int = 100_000) -> Dict[str, float]:
+    """Serve the requests through `eng` and return throughput/latency
+    stats; the clock stops after a device synchronisation."""
     for r in requests:
         eng.submit(r)
     t0 = time.perf_counter()
@@ -76,13 +89,15 @@ def run_workload(cfg, model, dsg, requests: List[Request], *,
         torch.cuda.synchronize(eng.device)
     wall = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done.values())
-    return {
+    stats = {
         "requests": len(done),
         "tokens": toks,
         "truncated": sum(r.truncated for r in done.values()),
         "wall_s": wall,
         "tok_per_s": toks / max(wall, 1e-9),
         **latency_stats(done),
+        "cache_backend": eng.cache.kind,
+        "decode_chunk": eng.decode_chunk,
         "cache_bytes": int(eng.backend.resident_bytes(eng.cache)),
         "decode_tok_per_s": (eng.decode_tok_per_s()
                              if eng.decode_tokens else 0.0),
@@ -90,3 +105,26 @@ def run_workload(cfg, model, dsg, requests: List[Request], *,
         "admissions": eng.admissions,
         "refresh_steps": eng.refresh_steps,
     }
+    if eng.graphs is not None:
+        stats.update(graph_replays=sum(eng.graphs.replays.values()),
+                     graphs_captured=len(eng.graphs.graphs),
+                     capture_s=eng.graphs.capture_seconds,
+                     graph_pool_bytes=eng.graphs.pool_bytes)
+    return stats
+
+
+def run_workload(cfg, model, dsg, requests: List[Request], *,
+                 n_slots: int = 4, max_seq: int = 384,
+                 prompt_bucket: int = 256, cache_backend: str = "dense",
+                 page_size: int = 16, cache_tokens=None, dsg_serving=None,
+                 decode_chunk: int = 1,
+                 max_steps: int = 100_000) -> Dict[str, float]:
+    """Run the requests through one ServingEngine on the model's device
+    after `warmup_engine`, and return throughput/latency stats."""
+    eng = ServingEngine(cfg, model, dsg, n_slots=n_slots, max_seq=max_seq,
+                        prompt_bucket=prompt_bucket,
+                        cache_backend=cache_backend, page_size=page_size,
+                        cache_tokens=cache_tokens, dsg_serving=dsg_serving,
+                        decode_chunk=decode_chunk)
+    warmup_engine(eng, cfg.vocab, max_steps=max_steps)
+    return run_engine(eng, requests, max_steps=max_steps)

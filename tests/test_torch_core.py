@@ -159,6 +159,22 @@ def test_csr_to_dense_ignores_padding():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# the out-of-range padding of ROADMAP.md §3's fault (now fixed): slots past
+# a lane's count hold -1, 9, 99 or 64 with G = 4 or 8
+PADDING_CASES = [
+    ([[1, 3, -1, 9], [0, 2, 3, 99]], [2, 3], 4),
+    ([[1, 3, 64, -1]], [2], 8),
+]
+
+
+@pytest.mark.parametrize("idx,counts,groups", PADDING_CASES)
+def test_csr_to_dense_ignores_out_of_range_padding(idx, counts, groups):
+    idx, counts = np.asarray(idx, np.int32), np.asarray(counts, np.int32)
+    got = sparse_mask.csr_to_dense(_t(idx), _t(counts), groups)
+    want = jsm.csr_to_dense(jnp.asarray(idx), jnp.asarray(counts), groups)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_active_group_bound_and_buckets():
     for g in (1, 3, 4, 8, 64):
         assert (sparse_mask.active_group_buckets(g)

@@ -28,7 +28,7 @@ from repro_torch.kernels import (cuda_lib, drs_search, dsg_ffn,  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving.dsg_runtime import DSGServingConfig  # noqa: E402
-from repro_torch.serving.scheduler import ServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.workload import mixed_requests  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -717,7 +717,8 @@ def test_ops_launch_kernels_on_card(cuda):
     assert fa.flash_attention.launches == before + 1
 
 
-def _smoke_streams(device, dsg_serving):
+def _smoke_engine(device, dsg_serving, cache_backend="paged",
+                  decode_chunk=1, max_seq=64, page_size=8):
     cfg = configs.get_smoke_config("internlm2-1.8b")
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(0)
@@ -725,11 +726,21 @@ def _smoke_streams(device, dsg_serving):
     dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
     model = model.to(device)
     dsg = {k: v.to(device) for k, v in dsg.items()}
-    eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
-                        prompt_bucket=32, page_size=8,
-                        dsg_serving=dsg_serving)
-    for r in mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
-                            max_new_range=(3, 9)):
+    return ServingEngine(cfg, model, dsg, n_slots=2, max_seq=max_seq,
+                         prompt_bucket=32, page_size=page_size,
+                         cache_backend=cache_backend,
+                         dsg_serving=dsg_serving, decode_chunk=decode_chunk)
+
+
+def _smoke_requests(vocab):
+    return mixed_requests(vocab, 6, seed=23, prompt_range=(4, 30),
+                          max_new_range=(3, 9))
+
+
+def _smoke_streams(device, dsg_serving, cache_backend="paged",
+                   decode_chunk=1):
+    eng = _smoke_engine(device, dsg_serving, cache_backend, decode_chunk)
+    for r in _smoke_requests(eng.cfg.vocab):
         eng.submit(r)
     return {u: r.output for u, r in eng.run(400).items()}
 
@@ -740,3 +751,111 @@ def test_engine_streams_card_match_cpu_on_card(cuda, dsg_serving):
     versions) emits the same greedy streams."""
     assert (_smoke_streams(cuda, dsg_serving)
             == _smoke_streams(torch.device("cpu"), dsg_serving))
+
+
+@pytest.mark.parametrize("dsg_serving", [None, DSGServingConfig(8)],
+                         ids=["no_dsg", "dsg"])
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_engine_backends_and_chunks_card_match_cpu_on_card(
+        cuda, backend, chunk, dsg_serving):
+    """The dense backend and the fused chunk (CUDA graph replays on the
+    card, the eager micro-step loop on the CPU) emit the CPU's streams."""
+    assert (_smoke_streams(cuda, dsg_serving, backend, chunk)
+            == _smoke_streams(torch.device("cpu"), dsg_serving, backend,
+                              chunk))
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_lane_reaching_max_seq_mid_chunk_on_card(cuda, backend):
+    """A lone request stops at max_seq (60) after 28 micro-steps, mid-chunk:
+    the graph's last micro-steps feed every lane the position max_seq, the
+    dense write stays inside the stripe, and the card's stream equals the
+    CPU's."""
+    def stream(device):
+        eng = _smoke_engine(device, None, backend, 8, max_seq=60,
+                            page_size=4)
+        eng.submit(Request(uid=0, prompt=np.arange(29, dtype=np.int32) + 1,
+                           max_new=64))
+        return list(eng.run(400)[0].output), eng.steps
+    want = stream(torch.device("cpu"))
+    assert want[1] == len(want[0]) == 28
+    assert stream(cuda) == want
+
+
+def test_chunk_graph_launch_accounting_on_card(cuda):
+    """After warmup_engine has captured every key, a run captures nothing
+    more: the wrappers' counters then hold only eager launches (the DRS
+    kernels' at admission), and the graph cache's captured launches x
+    replays give the decode kernels layers x chunk x replays and the DRS
+    kernels layers x refresh replays."""
+    from repro_torch.serving import cuda_graphs, workload
+    eng = _smoke_engine(cuda, DSGServingConfig(8), "paged", 8)
+    workload.warmup_engine(eng, eng.cfg.vocab)
+    keys = set(eng.graphs.graphs)
+    assert len(keys) == 4 * 2        # live-page buckets 1-8 x refresh
+    for w in cuda_graphs.WRAPPERS:
+        for n in [n for n in vars(w) if n.startswith("launches")]:
+            setattr(w, n, 0)
+    for r in _smoke_requests(eng.cfg.vocab):
+        eng.submit(r)
+    done = eng.run(400)
+    assert set(eng.graphs.graphs) == keys
+    replays = sum(eng.graphs.replays.values())
+    n_l = eng.cfg.n_layers
+    assert len(done) == 6 and replays > 0 and eng.refresh_steps > 0
+    for w in (paged_attention.paged_decode, dsg_ffn.dsg_ffn_csr):
+        assert w.launches == 0
+        assert eng.graphs.launches(w) == n_l * 8 * replays
+    for w in (drs_search.drs_project, drs_search.drs_scores):
+        assert w.launches == n_l * eng.admissions
+        assert eng.graphs.launches(w) == n_l * eng.refresh_steps
+
+
+def test_graph_cache_replays_and_counts_on_card(cuda):
+    """A key is captured once, without running, and replayed after: each
+    replay computes the eager call's output on what was staged for it, and
+    the counter counts the capture's launch while the cache counts the
+    replays'."""
+    from repro_torch.serving import cuda_graphs
+    cache = cuda_graphs.GraphCache(cuda, 32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    wg = torch.randn(16, 64, device=cuda, generator=gen)
+    wu = torch.randn(16, 64, device=cuda, generator=gen)
+    wd = torch.randn(64, 16, device=cuda, generator=gen)
+    idx = torch.tensor([[0, 2], [1, 3]], dtype=torch.int32, device=cuda)
+    counts = torch.tensor([2, 1], dtype=torch.int32, device=cuda)
+    (x,) = cache.views([(2, 16)])
+
+    def fn():
+        return ops.dsg_ffn_csr(x.float() / 32, wg, wu, wd, idx, counts,
+                               block=16)
+    dsg_ffn.dsg_ffn_csr.launches = 0
+    for i, seed in enumerate((1, 2)):
+        vals = np.random.default_rng(seed).integers(-32, 32, 32)
+        cache.stage([vals.astype(np.int32)])
+        out = cache.replay("k", fn)
+        torch.cuda.synchronize()
+        got = out.clone()
+        want = fn()                  # eager, on the same staged input
+        torch.cuda.synchronize()
+        assert float(got.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert cache.replays["k"] == i + 1
+    assert len(cache.graphs) == 1
+    assert cache.launches(dsg_ffn.dsg_ffn_csr) == 2         # the replays'
+    assert dsg_ffn.dsg_ffn_csr.launches == 1 + 2    # capture + eager calls
+
+
+def test_graph_capture_failure_raises_on_card(cuda):
+    """A chunk that reads a value back to the host cannot be captured: the
+    capture raises, and nothing falls back to an eager run."""
+    from repro_torch.serving import cuda_graphs
+    cache = cuda_graphs.GraphCache(cuda, 4)
+    x = torch.ones(4, device=cuda)
+
+    def fn():
+        return x * float(x.sum())      # .item() inside the capture
+    with pytest.raises(RuntimeError):
+        cache.replay("sync", fn)
+    assert "sync" not in cache.graphs

@@ -189,6 +189,22 @@ def test_dsg_ffn_csr_plain_matches_pallas(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("idx,counts,groups", [
+    ([[1, 3, -1, 9], [0, 2, 3, 99]], [2, 3], 4),
+    ([[1, 3, 64, -1]], [2], 8)])
+def test_dsg_ffn_csr_plain_ignores_out_of_range_padding(idx, counts, groups):
+    """Slots past a lane's count may hold any value (ROADMAP.md §3's
+    padding fault, now fixed): the plain version gives the Pallas
+    kernel's result, where it used to raise IndexError."""
+    block, d = 16, 16
+    idx, counts = np.asarray(idx, np.int32), np.asarray(counts, np.int32)
+    wg, wu, wd, x = _ffn_weights(5, d, groups * block, len(counts))
+    j, t = _both(x, wg, wu, wd, idx, counts)
+    want = jdf.dsg_ffn_csr(*j, block=block, interpret=True)
+    got = ops.dsg_ffn_csr(*t, block=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_swiglu_csr_executors_agree_with_reference():
     wg, wu, wd, x = _ffn_weights(1, 16, 64, 3)
     idx = np.asarray([[0, 2], [1, 3], [3, 0]], np.int32)

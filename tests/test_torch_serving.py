@@ -25,6 +25,7 @@ import jax  # noqa: E402
 
 from harness import (engine_spec, make_engine_parts, mixed_traffic,  # noqa: E402
                      run_and_collect)
+from repro.launch import serve as jserve  # noqa: E402
 from repro.serving.dsg_runtime import DSGServingConfig as JDSGServing  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -123,9 +124,9 @@ def test_serve_cli_needs_a_gpu_unless_told_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--replicas", "2"], "ROADMAP"), (["--decode-chunk", "8"], "ROADMAP"),
+    (["--replicas", "2"], "ROADMAP"), (["--temperature", "0.7"], "ROADMAP"),
     (["--prefix-sharing"], "ROADMAP"), (["--chaos", "crash"], "ROADMAP"),
-    (["--cache-backend", "dense"], "invalid choice"),
+    (["--admission", "wave"], "ROADMAP"),
     (["--paged-kernel", "xla"], "invalid choice"),
     (["--dsg-apply", "dense"], "invalid choice")])
 def test_serve_cli_rejects_unported_flags(flag, says, capsys):
@@ -133,3 +134,54 @@ def test_serve_cli_rejects_unported_flags(flag, says, capsys):
         serve.main(["--device", "cpu", "--smoke", *flag])
     assert exc.value.code != 0
     assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,says", [
+    ([], "[batch/dense on cpu] generated (4, 16)"),
+    (["--workload", "mixed", "--requests", "3", "--cache-backend", "dense"],
+     "[overlap/dense on cpu] 3 requests"),
+    (["--workload", "mixed", "--requests", "3", "--cache-backend", "paged",
+      "--dsg-serving", "--decode-chunk", "4"],
+     "[overlap/paged/chunk4 on cpu] 3 requests"),
+    (["--workload", "mixed", "--requests", "3", "--cache-backend", "dense",
+      "--decode-chunk", "4"], "[overlap/dense/chunk4 on cpu] 3 requests")])
+def test_serve_cli_workloads_on_cpu(flags, says, capsys):
+    """The reference's defaults (the batch workload; the dense cache for
+    mixed traffic) and fused decode chunks, on the CPU."""
+    serve.main(["--device", "cpu", "--smoke", *flags])
+    assert says in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--decode-chunk", "0"], "--decode-chunk must be >= 1"),
+    (["--workload", "mixed", "--dsg-serving", "--decode-chunk", "3"],
+     "must divide --dsg-refresh-interval"),
+    (["--dsg-serving"], "add --workload mixed")])
+def test_serve_cli_rejects_bad_chunk_and_batch_flags(flags, says, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu", "--smoke", *flags])
+    assert exc.value.code != 0
+    assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dsg_on", [True, False], ids=["dsg", "no_dsg"])
+def test_generate_matches_reference(dsg_on):
+    """The batch workload: one batched prefill, then greedy decode on a
+    dense cache; with DSG on both packages select per-token masks (top-k)
+    in prefill and decode.  Tokens must be equal (f32)."""
+    cfg, params, dsg = make_engine_parts()
+    if not dsg_on:
+        cfg = cfg.replace(dsg=cfg.dsg._replace(enabled=False))
+        dsg = None
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 12),
+                                                dtype=np.int32)
+    want = np.asarray(jserve.generate(cfg, params, dsg, jax.numpy.asarray(
+        prompts), 10))
+    tcfg = bridge.config_from_jax(cfg)
+    got = serve.generate(
+        tcfg, bridge.model_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu"),
+        bridge.dsg_from_jax(None if dsg is None
+                            else jax.tree.map(np.asarray, dsg), device="cpu"),
+        torch.from_numpy(prompts), 10)
+    np.testing.assert_array_equal(got.numpy(), want)
