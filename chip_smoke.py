@@ -84,11 +84,13 @@ result line):
             paged decode's and the CSR FFN's 24 x 8 x replays, on the split
             and union paths, and the DRS kernels' 24 x refresh replays, on
             the GEMV path.  Prints TPOT, TTFT and decode tok/s, the
-            replays, graphs, capture seconds and the graph pool's bytes,
-            and how many streams equal phase 3's (lanes admit at chunk
-            boundaries, and the union CSR FFN sums a lane's down
-            projection in an order that depends on its co-resident lanes,
-            so bf16 streams may part).
+            replays, graphs, capture seconds and the graph pool's bytes.
+            Every stream must equal phase 3's, bit for bit: lanes admit at
+            chunk boundaries, so they share their steps with other lanes
+            than in phase 3, and a lane's bf16 sums must not depend on
+            them (the split paged step cuts a lane's walk by its own page
+            count, the union CSR FFN its down projection at fixed group
+            ranges).
 11. bitwise — 4 requests with prompts in one bucket and max_new 32, all
             admitted at step 0 (the same co-scheduling at any chunk): the
             bf16 streams of the chunk-8 graphs equal the eager chunk-1
@@ -100,9 +102,33 @@ result line):
             shows that the replays ran the kernels: 24 x 8 x replays for
             the decode kernels, apart from any counter.
 14. check chunk — phase 5 over {dense, paged} x {chunk 1, 8} x {DSG serving
-            off, on (refresh 8)}: the card's smoke-width f32 streams equal
+            off, on (refresh 8)}, and four runs with sampled lanes or prefix
+            sharing on (12 in all): the card's smoke-width f32 streams equal
             the CPU's.
-Phases 10-14 run after phase 5; each prints its seconds.
+15. solo  — each of phase 3's 8 requests served alone at chunk 8, one
+            after another through one engine: each stream equals that
+            request's in phase 3 and in phase 10.
+16. sample — phase 3's 8 requests, the odd ones sampled at temperature 0.8,
+            top_p 0.9, at chunk 1 (eager) and at chunk 8 (graphs, the
+            sampling ones captured by warmup_engine) and at chunk 8 again
+            in a fresh engine with the same seed: every request ok, every
+            greedy stream equal to phase 3's, every sampled stream the same
+            in all three runs, and the sampling graphs replayed.  Prints
+            TPOT beside phase 10's.
+17. prefix — 8 requests of 192 tokens sharing a 160-token prefix (max_new
+            32) at chunk 8, prefix sharing off and on: the streams equal 8
+            of 8, shared page hits > 0 and a lower peak of live pages with
+            sharing on; prints the copy-on-write copies.
+18. open-loop — 16 mixed requests submitted by `run_open_loop` at Poisson
+            arrivals of half the requests a second that phase 10 completed,
+            chunk 8, and a 17th whose deadline lapses in the queue: the 16
+            finish ok, the 17th retires timed_out; prints TTFT and TPOT
+            p50/p95.
+Phases 15-18 each count the kernels' launches from 0, by the graph cache
+for the chunked runs (phase 10's accounting) and by the wrappers' counters
+for the eager one; each must have launched every serve-path kernel.
+Phases 10-18 run after phase 5, in the order 10, 15-18, 11-14; each prints
+its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -475,12 +501,19 @@ def profile_serve(cfg, model, dsg, eng_kw):
 
 
 def smoke_streams(device, dsg_serving, cache_backend="paged",
-                  decode_chunk=1):
+                  decode_chunk=1, sample=False, sharing=None):
+    """The smoke model's streams (f32) over 6 requests through 2 lanes:
+    mixed lengths, or with `sharing` (a prefix length) 28-token prompts
+    whose first `sharing` tokens are the same, in a 28-token bucket, served
+    with prefix sharing on (28 = 3.5 pages of 8, so identical prompts share
+    a partial tail page and copy it on write); with `sample` the odd
+    requests sample at temperature 0.8, top_p 0.9."""
     import torch
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.serving.scheduler import ServingEngine
-    from repro_torch.serving.workload import mixed_requests
+    from repro_torch.serving.workload import (mixed_requests,
+                                              shared_prefix_requests)
     cfg = configs.get_smoke_config(ARCH)
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(SEED)
@@ -488,12 +521,22 @@ def smoke_streams(device, dsg_serving, cache_backend="paged",
     dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
     model = model.to(device)
     dsg = {k: v.to(device) for k, v in dsg.items()}
+    kw = {}
+    if sharing is None:
+        reqs = mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
+                              max_new_range=(3, 9))
+    else:
+        reqs = shared_prefix_requests(cfg.vocab, 6, prompt_len=28,
+                                      prefix_len=sharing, max_new=7, seed=29)
+        kw = dict(buckets=(28,), prefix_sharing=True)
+    if sample:
+        for r in reqs[1::2]:
+            r.temperature, r.top_p = 0.8, 0.9
     eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
                         prompt_bucket=32, page_size=8,
                         cache_backend=cache_backend, dsg_serving=dsg_serving,
-                        decode_chunk=decode_chunk)
-    for r in mixed_requests(cfg.vocab, 6, seed=23, prompt_range=(4, 30),
-                            max_new_range=(3, 9)):
+                        decode_chunk=decode_chunk, **kw)
+    for r in reqs:
         eng.submit(r)
     return {u: r.output for u, r in eng.run(400).items()}
 
@@ -511,24 +554,27 @@ def serve_line(tag, stats) -> str:
             f"refresh dispatches; KV {stats['cache_bytes'] / 1e9:.3f} GB")
 
 
-def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
-    """Phase 10: the fused decode chunk through CUDA graphs at full width.
-    warmup_engine captures every key; then the kernels' counters are set
-    to 0 and the requests run.  A replay runs its kernels without calling
-    the wrappers, so their counters now hold the eager launches (the DRS
-    kernels' at admission, on the tc path) and what any capture made
-    during the run recorded.  The graph cache's captured launches x
-    replays must give paged decode and the CSR FFN layers x chunk x
-    replays, on the split and union paths, and the DRS kernels layers x
-    refresh replays, on the GEMV path.  Phase 13 counts the same kernels
-    in a device trace, apart from any counter.  Returns (stats, launches
-    by kernel, graph accounting, streams)."""
+def graph_serve(cfg, model, dsg, eng_kw, wrappers, requests, drive=None,
+                expect_ok=None):
+    """A chunked engine at full width through CUDA graphs: warmup_engine
+    captures every key the requests can reach (the sampling ones too when
+    they sample); then the kernels' counters are set to 0 and `drive`
+    (default: run_engine) serves the requests.  A replay runs its kernels
+    without calling the wrappers, so their counters now hold the eager
+    launches (the DRS kernels' at admission, on the tc path) and what any
+    capture made during the run recorded.  The graph cache's captured
+    launches x replays must give paged decode and the CSR FFN layers x
+    chunk x replays, on the split and union paths, and the DRS kernels
+    layers x refresh replays, on the GEMV path; the DRS kernels' eager
+    launches are layers x the admissions that ran a prefill.  Every
+    request must finish ok (`expect_ok` of them, when given).  Returns
+    (stats, launches by kernel, graph accounting, streams)."""
     import torch
     from repro_torch.serving.scheduler import ServingEngine
     from repro_torch.serving.workload import run_engine, warmup_engine
     eng = ServingEngine(cfg, model, dsg, **eng_kw)
     t0 = time.perf_counter()
-    warmup_engine(eng, cfg.vocab)
+    warmup_engine(eng, cfg.vocab, requests=requests)
     warm_s = time.perf_counter() - t0
     graphs = eng.graphs
     if graphs is None:
@@ -543,7 +589,7 @@ def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
     for w in wrappers.values():
         for name in [n for n in vars(w) if n.startswith("launches")]:
             setattr(w, name, 0)
-    stats = run_engine(eng, requests)
+    stats = (drive or run_engine)(eng, requests)
     torch.cuda.synchronize()
     new_keys = [k for k in graphs.graphs if k not in warmed]
 
@@ -557,7 +603,8 @@ def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
     replays = sum(graphs.replays.values())
     chunk = eng_kw["decode_chunk"]
     calls = {"decode": chunk * replays, "refresh": stats["refresh_steps"]}
-    admitted = cfg.n_layers * stats["admissions"]
+    prefills = stats["admissions"] - stats.get("prefill_cache_hits", 0)
+    admitted = cfg.n_layers * prefills
     for n, (path, by) in paths.items():
         if n not in got:
             continue
@@ -568,8 +615,8 @@ def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
             fail(f"{n}: {got[n]['launches']} launches, expected {want}: "
                  f"{cfg.n_layers} layers x {chunk} micro-steps x {replays} "
                  f"replays (decode kernels), {cfg.n_layers} x refresh "
-                 f"replays replayed and {cfg.n_layers} x admissions eager "
-                 f"(DRS kernels)")
+                 f"replays replayed and {cfg.n_layers} x {prefills} "
+                 f"prefills eager (DRS kernels)")
         if got[n][f"launches_{path}"]["replayed"] != replayed or (
                 eager and got[n]["launches_tc"]["eager"] != eager):
             fail(f"{n} took {got[n]} by path; the replays must take the "
@@ -587,11 +634,50 @@ def chunked_serve(cfg, model, dsg, eng_kw, wrappers, requests):
                 str(key): {w.__name__: c for (w, n), c in cap.items()
                            if n == "launches"}
                 for key, cap in graphs.captured.items()}}
-    if stats["requests"] != len(requests) or \
-            stats["ok_requests"] != len(requests):
-        fail(f"not every chunked request finished ok: {stats}")
+    ok = len(requests) if expect_ok is None else expect_ok
+    if stats["requests"] != len(requests) or stats["ok_requests"] != ok:
+        fail(f"{ok} of {len(requests)} requests must finish ok: {stats}")
     streams = {u: list(r.output) for u, r in eng.done.items()}
+    stats["statuses"] = dict(Counter(r.status for r in eng.done.values()))
     return stats, launches, acct, streams
+
+
+def eager_serve(cfg, model, dsg, eng_kw, wrappers, requests):
+    """An eager (chunk 1) engine at full width after warmup_engine: the
+    kernels' counters set to 0 just before the run and read just after
+    must give paged decode and the CSR FFN layers x decode steps, and the
+    DRS kernels layers x (prefills + refresh steps).  Every request must
+    finish ok.  Returns (stats, launches by kernel, streams)."""
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import run_engine, warmup_engine
+    eng = ServingEngine(cfg, model, dsg, **eng_kw)
+    warmup_engine(eng, cfg.vocab, requests=requests)
+    for w in wrappers.values():
+        w.launches = 0
+    stats = run_engine(eng, requests)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    drs = cfg.n_layers * (stats["admissions"]
+                          - stats.get("prefill_cache_hits", 0)
+                          + stats["refresh_steps"])
+    want = {"paged_decode": cfg.n_layers * stats["steps"],
+            "dsg_ffn_csr": cfg.n_layers * stats["steps"],
+            "drs_project": drs, "drs_scores": drs}
+    if launches != want or not all(launches.values()):
+        fail(f"the eager run launched {launches}, expected {want}")
+    if stats["ok_requests"] != len(requests):
+        fail(f"not every eager request finished ok: {stats}")
+    return stats, launches, {u: list(r.output) for u, r in eng.done.items()}
+
+
+def solo_drive(eng, requests):
+    """Serve each request alone through `eng`, one after another; the
+    stats of all of them together."""
+    from repro_torch.serving.workload import engine_stats
+    t0 = time.perf_counter()
+    for r in requests:
+        eng.submit(r)
+        eng.run()
+    return engine_stats(eng, dict(eng.done), time.perf_counter() - t0)
 
 
 def fixed_lane_streams(cfg, model, dsg, eng_kw, chunk):
@@ -1067,8 +1153,9 @@ def tile_sweep(x, wg, wu, wd, mask, block) -> dict:
 
 def paged_sweep(args, kwargs) -> dict:
     """Phase 9 for the split paged kernel on the captured bf16 step:
-    device time at 1, 2, 4 and 8 splits, each output held against the
-    plain version and each pool against the plain version's writes."""
+    device time at 1, 2, 4 and 8 splits of each lane's walk, each output
+    held against the plain version and each pool against the plain
+    version's writes."""
     import math
     import torch
     from repro_torch.kernels import cuda_lib, paged_attention
@@ -1098,8 +1185,8 @@ def paged_sweep(args, kwargs) -> dict:
             fail(f"paged_decode at {splits} splits differs from its plain "
                  f"version")
         by[splits] = ms
-    print(f"[splits] paged_decode (split): plan {plan.splits} splits "
-          f"({plan.blocks} blocks); device ms by splits "
+    print(f"[splits] paged_decode (split): plan {plan.splits} splits a "
+          f"lane ({plan.blocks} blocks); device ms by splits a lane "
           + ", ".join(f"{sp}: {ms:.4f}" for sp, ms in by.items()),
           flush=True)
     return {"plan": plan.splits, "ms_by_splits": by}
@@ -1117,8 +1204,9 @@ def main() -> int:
     from repro_torch.models import api
     from repro_torch.serving.dsg_runtime import DSGServingConfig
     from repro_torch.serving.scheduler import ServingEngine
-    from repro_torch.serving.workload import (mixed_requests, run_engine,
-                                              warmup_engine)
+    from repro_torch.serving.workload import (
+        engine_stats, mixed_requests, poisson_arrivals, run_engine,
+        run_open_loop, shared_prefix_requests, warmup_engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1292,9 +1380,9 @@ def main() -> int:
     kw8 = dict(eng_kw, decode_chunk=chunk)
     wrappers = {n: w for n, (w, _) in kernels.items()}
     t0 = time.perf_counter()
-    stats8, launches8, acct8, streams8 = chunked_serve(
-        cfg, model, dsg, kw8, wrappers, mixed_requests(cfg.vocab, 8,
-                                                       seed=SEED))
+    reqs3 = lambda: mixed_requests(cfg.vocab, 8, seed=SEED)  # noqa: E731
+    stats8, launches8, acct8, streams8 = graph_serve(
+        cfg, model, dsg, kw8, wrappers, reqs3())
     same = sum(streams8[u] == streams3[u] for u in streams3)
     print(serve_line(f"chunk{chunk}/paged", stats8), flush=True)
     print(f"[chunk{chunk}/paged] {acct8['replays']} replays of "
@@ -1305,7 +1393,130 @@ def main() -> int:
           f"(captured x replays, and the admissions' eager DRS launches); "
           f"{same} of {len(streams3)} streams equal "
           f"the eager serve's; {time.perf_counter() - t0:.2f}s", flush=True)
+    if same != len(streams3):
+        fail(f"{same} of {len(streams3)} chunk-{chunk} bf16 streams equal "
+             f"the eager serve's: a lane's stream depends on its "
+             f"co-resident lanes")
+    phase_launches = {f"chunk{chunk}": launches8}
     print("[chunked] stats " + json.dumps(dict(stats8, **acct8)), flush=True)
+
+    # solo: each of phase 3's requests alone at chunk 8
+    t0 = time.perf_counter()
+    stats_solo, phase_launches["solo"], _, solo = graph_serve(
+        cfg, model, dsg, kw8, wrappers, reqs3(), drive=solo_drive)
+    same = {u: (solo[u] == streams3[u], solo[u] == streams8[u])
+            for u in streams3}
+    print(f"[solo] each of the 8 requests alone at chunk {chunk}: "
+          f"{sum(a for a, _ in same.values())} of 8 streams equal phase 3's "
+          f"and {sum(b for _, b in same.values())} of 8 phase 10's; "
+          f"launches {phase_launches['solo']}; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if not all(a and b for a, b in same.values()):
+        fail(f"a request served alone decodes another bf16 stream than in "
+             f"a batch: {same}")
+
+    # sample: 4 greedy and 4 sampled requests at chunk 1 and chunk 8, and
+    # chunk 8 again in a fresh engine with the same seed
+    t0 = time.perf_counter()
+
+    def sampled():
+        reqs = reqs3()
+        for r in reqs[1::2]:
+            r.temperature, r.top_p = 0.8, 0.9
+        return reqs
+    runs = {}
+    stats_s1, phase_launches["sample_chunk1"], runs["chunk 1"] = \
+        eager_serve(cfg, model, dsg, eng_kw, wrappers, sampled())
+    for tag in ("chunk 8", "chunk 8 again"):
+        st, phase_launches["sample_" + tag.replace(" ", "_")], acct, \
+            runs[tag] = graph_serve(cfg, model, dsg, kw8, wrappers, sampled())
+        sample_keys = sum(v for k, v in acct["replays_by_key"].items()
+                          if k.endswith("True)"))
+        if tag == "chunk 8":
+            stats_s8, replays_sampled = st, sample_keys
+    greedy = [u for u in streams3 if u % 2 == 0]
+    drawn = [u for u in streams3 if u % 2 == 1]
+    kept = sum(runs[t][u] == streams3[u] for t in runs for u in greedy)
+    stable = sum(runs["chunk 1"][u] == runs[t][u] for t in runs
+                 for u in drawn)
+    moved = sum(runs["chunk 1"][u] != streams3[u] for u in drawn)
+    print(serve_line("sample/chunk1", stats_s1), flush=True)
+    print(serve_line(f"sample/chunk{chunk}", stats_s8), flush=True)
+    print(f"[sample] {kept} of {3 * len(greedy)} greedy streams equal phase "
+          f"3's; {stable} of {3 * len(drawn)} sampled streams equal the "
+          f"chunk-1 run's (chunk 1, chunk {chunk}, chunk {chunk} again), "
+          f"{moved} of {len(drawn)} differ from their greedy stream; "
+          f"{replays_sampled} replays of sampling graphs; TPOT p50 "
+          f"{1e3 * stats_s8['tpot_p50_s']:.2f} ms at chunk {chunk} beside "
+          f"phase 10's {1e3 * stats8['tpot_p50_s']:.2f} ms (chunk 1: "
+          f"{1e3 * stats_s1['tpot_p50_s']:.2f} ms); "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if kept != 3 * len(greedy) or stable != 3 * len(drawn) \
+            or not replays_sampled:
+        fail("sampling moved a greedy lane's stream, or a sampled stream "
+             "changed with the chunk or from run to run, or no sampling "
+             "graph ran")
+    print("[sample] stats " + json.dumps({"chunk1": stats_s1,
+                                          f"chunk{chunk}": stats_s8}),
+          flush=True)
+
+    # prefix: 8 requests sharing a 160-token prefix, sharing on and off
+    t0 = time.perf_counter()
+    prefix = {}
+    for on in (False, True):
+        kw = dict(kw8, prefix_sharing=on)
+        st, phase_launches[f"prefix_{'on' if on else 'off'}"], _, \
+            streams = graph_serve(cfg, model, dsg, kw, wrappers,
+                                  shared_prefix_requests(
+                                      cfg.vocab, 8, prompt_len=192,
+                                      prefix_len=160, max_new=32, seed=SEED))
+        prefix[on] = (st, streams)
+    (st_off, s_off), (st_on, s_on) = prefix[False], prefix[True]
+    same = sum(s_on[u] == s_off[u] for u in s_off)
+    print(serve_line("prefix/off", st_off), flush=True)
+    print(serve_line("prefix/on", st_on), flush=True)
+    print(f"[prefix] {same} of {len(s_off)} streams equal with sharing on "
+          f"and off; shared page hits {st_on['shared_page_hits']}, COW "
+          f"copies {st_on['cow_copies']}, prefill replays "
+          f"{st_on['prefill_cache_hits']}; peak live pages "
+          f"{st_on['peak_live_pages']} on, {st_off['peak_live_pages']} off; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if same != len(s_off) or not st_on["shared_page_hits"] \
+            or st_on["peak_live_pages"] >= st_off["peak_live_pages"]:
+        fail("prefix sharing changed a stream, shared no page or did not "
+             "lower the peak of live pages")
+
+    # open loop: Poisson arrivals at half the rate phase 10 completed, and
+    # one request whose deadline lapses in the queue
+    t0 = time.perf_counter()
+    rate = 0.5 * stats8["requests"] / stats8["wall_s"]
+    reqs_ol = mixed_requests(cfg.vocab, 17, seed=SEED + 5)
+    late = reqs_ol[-1]
+    late.deadline_s = 1e-6
+    arrivals = list(poisson_arrivals(16, rate, seed=SEED + 5))
+    arrivals.append(arrivals[len(arrivals) // 2])
+    order = sorted(range(17), key=lambda i: arrivals[i])
+
+    def open_loop(eng, reqs):
+        t = time.perf_counter()
+        done = run_open_loop(eng, [reqs[i] for i in order],
+                             [arrivals[i] for i in order])
+        torch.cuda.synchronize()
+        return engine_stats(eng, done, time.perf_counter() - t)
+    st_ol, phase_launches["open_loop"], _, _ = graph_serve(
+        cfg, model, dsg, kw8, wrappers, reqs_ol, drive=open_loop,
+        expect_ok=16)
+    print(serve_line("open-loop", st_ol), flush=True)
+    print(f"[open-loop] 16 requests at {rate:.3f} req/s (half of phase 10's "
+          f"{2 * rate:.3f}): statuses {st_ol['statuses']}; TTFT p50 "
+          f"{1e3 * st_ol['ttft_p50_s']:.1f} ms p95 "
+          f"{1e3 * st_ol['ttft_p95_s']:.1f} ms, TPOT p50 "
+          f"{1e3 * st_ol['tpot_p50_s']:.2f} ms p95 "
+          f"{1e3 * st_ol['tpot_p95_s']:.2f} ms; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if late.status != "timed_out" or st_ol["timed_out_requests"] != 1:
+        fail(f"the request whose deadline lapsed retired {late.status!r}")
+    print("[open-loop] stats " + json.dumps(st_ol), flush=True)
 
     t0 = time.perf_counter()
     eager4 = fixed_lane_streams(cfg, model, dsg, eng_kw, 1)
@@ -1352,20 +1563,25 @@ def main() -> int:
     print(f"[profile chunk{chunk}] " + json.dumps(prof8), flush=True)
 
     t0 = time.perf_counter()
-    combos = 0
-    for backend in ("dense", "paged"):
-        for c in (1, chunk):
-            for scfg in (None, DSGServingConfig(refresh_interval=8)):
-                on_card = smoke_streams(dev, scfg, backend, c)
-                if on_card != smoke_streams(torch.device("cpu"), scfg,
-                                            backend, c) or len(on_card) != 6:
-                    fail(f"smoke streams on the card differ from the CPU "
-                         f"({backend}, chunk {c}, dsg_serving={scfg})")
-                combos += 1
-    print(f"[check] smoke-width greedy streams on the card equal the CPU's "
-          f"in all {combos} of {{dense, paged}} x {{chunk 1, {chunk}}} x "
-          f"{{DSG serving off, on}}; {time.perf_counter() - t0:.2f}s",
-          flush=True)
+    on8 = DSGServingConfig(refresh_interval=8)
+    combos = [(backend, c, scfg, {}) for backend in ("dense", "paged")
+              for c in (1, chunk) for scfg in (None, on8)]
+    combos += [("paged", 1, on8, dict(sample=True)),
+               ("dense", chunk, None, dict(sample=True)),
+               ("paged", 1, None, dict(sharing=28)),
+               ("paged", chunk, on8, dict(sample=True, sharing=20))]
+    for backend, c, scfg, extra in combos:
+        on_card = smoke_streams(dev, scfg, backend, c, **extra)
+        if on_card != smoke_streams(torch.device("cpu"), scfg, backend, c,
+                                    **extra) or len(on_card) != 6:
+            fail(f"smoke streams on the card differ from the CPU "
+                 f"({backend}, chunk {c}, dsg_serving={scfg}, {extra})")
+    print(f"[check] smoke-width streams on the card equal the CPU's in all "
+          f"{len(combos)}: {{dense, paged}} x {{chunk 1, {chunk}}} x {{DSG "
+          f"serving off, on}} greedy, sampling on (paged chunk 1 DSG on, "
+          f"dense chunk {chunk}), prefix sharing on (paged chunk 1 on "
+          f"identical prompts, paged chunk {chunk} DSG on sampled on a "
+          f"20-token prefix); {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 6. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1418,7 +1634,9 @@ def main() -> int:
                                           torch.bfloat16)))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     f"launches_chunk{chunk}": launches8[name], **row})
+                     f"launches_chunk{chunk}": launches8[name],
+                     "launches_by_phase": {k: v[name] for k, v in
+                                           phase_launches.items()}, **row})
         for label, r in shapes.items():
             lib = ("" if r["library_ms"] is None else
                    f", library {r['library_ms']:.4f} ms (span "

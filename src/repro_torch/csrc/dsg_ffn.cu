@@ -40,9 +40,14 @@
 //       rounds h to bf16 and writes h[u, lane]: exact zeros for a lane that
 //       does not list the group.  Blocks past the union exit at once.
 //   (b) csr_down, grid (d / tile, splits), clusters of `splits` along y.
-//       Split s walks its contiguous share of the union in ascending order
+//       Split s owns the fixed group range [s G / splits, (s + 1) G /
+//       splits): it walks the union groups in its range in ascending order
 //       and sums h[u, lane] . wd[g * block + r, tile columns] in f32 for all
-//       lanes; rank 0 sums the splits in rank order and rounds once.
+//       lanes; rank 0 sums the splits in rank order and rounds once.  A
+//       lane's h is an exact zero in a group it does not list, which adds
+//       nothing to its sums, so a lane's output depends on its own groups
+//       and the plan's constants alone, never on its co-resident lanes'
+//       groups (the union).
 // Every thread streams its own 16-byte chunks of weight rows through a
 // ring of kStages cp.async copies (7 in flight) and consumes each chunk
 // itself, so the copies stay in flight without a block barrier; the
@@ -359,8 +364,20 @@ __global__ void __launch_bounds__(kThreads) csr_down_kernel(
   const int nu = build_union(idx, counts, b, k, f / block, lanes_of, ulist,
                              &n_union);
   const int split = blockIdx.y, tid = threadIdx.x;
-  const int per = (nu + splits - 1) / splits;
-  const int u0 = min(nu, split * per), ng = min(nu, u0 + per) - u0;
+  // this split's union entries: those whose group lies in its fixed range
+  __shared__ int bounds[2];
+  if (tid < 32) {
+    const int groups = f / block;
+    for (int e = 0; e < 2; ++e) {
+      const int lim = (int)((long long)(split + e) * groups / splits);
+      int n = 0;
+      for (int u = tid; u - tid < nu; u += 32)
+        n += __popc(__ballot_sync(0xffffffffu, u < nu && ulist[u] < lim));
+      if (tid == 0) bounds[e] = n;
+    }
+  }
+  __syncthreads();
+  const int u0 = bounds[0], ng = bounds[1] - bounds[0];
   // shared memory: the copy ring (overlaid by the phase sums), the
   // block's sums (NB, tile), this split's h (ng * block rows, NB) in f32
   // and the wd row of each of its rows
@@ -368,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) csr_down_kernel(
   float* red = reinterpret_cast<float*>(smem_raw);
   float* part = reinterpret_cast<float*>(smem_raw + ring_bytes(NB));
   float* hs = part + NB * tile;
-  int* wrow = reinterpret_cast<int*>(hs + (size_t)per * block * NB);
+  int* wrow = reinterpret_cast<int*>(hs + (size_t)ng * block * NB);
   for (int q = tid; q < ng * block; q += kThreads)
     wrow[q] = ulist[u0 + q / block] * block + q % block;
   for (int i = tid; i < ng * block / 8 * NB; i += kThreads) {  // 8 a load
@@ -437,7 +454,9 @@ int csr_union(const void* x, const void* wg, const void* wu, const void* wd,
         (const int32_t*)counts, (bf16*)h, b, d, f, k, block, slice, cluster);
     if (e != cudaSuccess) return (int)e;
   }
-  const int per = (max_union + splits - 1) / splits;
+  // the most union entries one split's group range can hold
+  int per = (groups + splits - 1) / splits;
+  if (per > max_union) per = max_union;
   const size_t smem = ring_bytes(NB) + (size_t)NB * tile * 4 +
                       (size_t)per * block * (NB + 1) * 4;
   const cudaError_t e = repro::sm90::launch_cluster(

@@ -20,7 +20,14 @@
 // 128 <= g * D <= 1024, ps <= 32).  Grid (B, Kv, S), the S split blocks of
 // one (lane, kv head) forming a cluster: split s walks a contiguous run of
 // the lane's pages, so B * Kv * S blocks share the walk where B * Kv alone
-// would leave most SMs idle.  Each split streams its pages' K and V rows
+// would leave most SMs idle.  A lane's cut depends on its own page count n
+// alone: its walk is cut into runs of per = ceil(n / lane_splits) pages,
+// lane_splits a constant of the plan, and split s takes run s.  The grid
+// holds S = min(lane_splits, the walk rounded up to a power of two)
+// splits, enough for the deepest lane; a split past a lane's runs is an
+// empty partial.  So a lane's output is the same whatever its co-resident
+// lanes hold and whatever the walk bound (the batch's deepest lane, and a
+// fused chunk's widening of it) happens to be.  Each split streams its pages' K and V rows
 // (ps rows of D contiguous elements at a stride of Kv * D) into a ring of
 // kSplitStages pages in shared memory with 16-byte cp.async copies, in
 // bf16, so page j + 1 is in flight while page j is used.  Scores take
@@ -194,7 +201,7 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split_kernel(
     const bf16* __restrict__ v_new, bf16* k_pages, bf16* v_pages,
     const int32_t* __restrict__ page_table, const int32_t* __restrict__ pos,
     bf16* __restrict__ out, int kv, int g, int ps, int max_pages, int walk,
-    int window, float scale, int splits) {
+    int window, float scale, int lane_splits) {
   constexpr int kChunks = D / 8;       // 16-byte chunks of a row
   constexpr int kPairs = 32 / kChunks;  // (head, key row) pairs a warp
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -211,10 +218,11 @@ __global__ void __launch_bounds__(kSplitThreads) paged_split_kernel(
   float* corr = ls + g;
 
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p = pos[b], lp = p / ps, off = p - lp * ps;
   const int n = min(lp, walk - 1) + 1;   // pages the lane walks
-  const int per = (n + splits - 1) / splits;
+  const int per = (n + lane_splits - 1) / lane_splits;  // the lane's own cut
   const int j0 = min(n, split * per), j1 = min(n, j0 + per);
   const int32_t* pt = page_table + (size_t)b * max_pages;
   const bf16* kn = k_new + ((size_t)b * kv + h) * D;
@@ -364,23 +372,29 @@ template <int D>
 int paged_split(const void* q, const void* k_new, const void* v_new,
                 void* k_pages, void* v_pages, const void* page_table,
                 const void* pos, void* out, int b, int kv, int g, int ps,
-                int max_pages, int walk, int window, float scale, int splits,
-                cudaStream_t stream) {
+                int max_pages, int walk, int window, float scale,
+                int lane_splits, cudaStream_t stream) {
   const size_t smem = (size_t)kSplitStages * 2 * ps * D * 2 +
                       4 * ((size_t)2 * g * D + g * ps + 3 * g);
+  int splits = 1;  // the walk rounded up to a power of two, at most lane_splits
+  while (splits < walk && splits < lane_splits) splits *= 2;
+  if (splits > lane_splits) splits = lane_splits;
   const cudaError_t e = repro::sm90::launch_cluster(
       paged_split_kernel<D>, dim3(b, kv, splits), kSplitThreads,
       dim3(1, 1, splits), smem, stream, (const bf16*)q, (const bf16*)k_new,
       (const bf16*)v_new, (bf16*)k_pages, (bf16*)v_pages,
       (const int32_t*)page_table, (const int32_t*)pos, (bf16*)out, kv, g, ps,
-      max_pages, walk, window, scale, splits);
+      max_pages, walk, window, scale, lane_splits);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The split kernel, bf16 only, with `splits` blocks per (lane, kv head).
+// The split kernel, bf16 only: each lane's walk cut into `splits` runs of
+// ceil(n / splits) of its n pages, one block per run, in a grid of
+// min(splits, the walk rounded up to a power of two) blocks per (lane, kv
+// head).
 extern "C" int repro_paged_decode_split(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* page_table, const void* pos, void* out, int b,

@@ -9,9 +9,12 @@ listed groups' weight blocks are read.  Two paths, picked by `csr_plan`
 from dtype and shape (never on failure): in bf16 with up to 8 lanes the
 union path reads each group that some lane lists once for all lanes
 (gate/up by clusters that split d, the down projection by column tile and
-group split, each summed in rank order through distributed shared
-memory); f32, more lanes and other shapes take the per-lane kernels.
-`csr_union_plain` is the union path's decomposition in plain PyTorch.
+split of the group index range, each summed in rank order through
+distributed shared memory); f32, more lanes and other shapes take the
+per-lane kernels.  `csr_union_plain` is the union path's decomposition in
+plain PyTorch.  Either way a lane's output is a function of its own x row
+and groups and of the plan's constants: the union's other groups add
+exact zeros to its sums and never move where they are cut.
 
 dsg_ffn (replacing the Pallas `repro/kernels/dsg_ffn.py::dsg_ffn`), the
 tile-masked FFN over multi-token rows: x (M, d), token_mask (M, F / block)
@@ -74,14 +77,16 @@ class CsrPlan(NamedTuple):
     down_blocks: int
 
 
-def union_smem(lanes: int, d: int, block: int, max_union: int, cluster: int,
-               slice_: int, tile: int, splits: int) -> tuple:
+def union_smem(lanes: int, d: int, block: int, groups: int, max_union: int,
+               cluster: int, slice_: int, tile: int, splits: int) -> tuple:
     """Dynamic shared memory of the union path's (gate/up, down) blocks, as
-    `csr_union` in dsg_ffn.cu sizes it."""
+    `csr_union` in dsg_ffn.cu sizes it: a down block holds the union
+    entries of one split's group range, at most min(max_union,
+    ceil(groups / splits))."""
     ring = max(UNION_THREADS * 16 * UNION_STAGES, UNION_THREADS * lanes * 32)
     up = ring + 4 * lanes * (2 * slice_ + -(-d // (8 * cluster)) * 8)
-    down = (ring + 4 * lanes * tile
-            + 4 * (lanes + 1) * -(-max_union // splits) * block)
+    per = min(max_union, -(-groups // splits))
+    down = ring + 4 * lanes * tile + 4 * (lanes + 1) * per * block
     return up, down
 
 
@@ -114,8 +119,8 @@ def csr_plan(b: int, d: int, f: int, k: int, block: int, dtype) -> CsrPlan:
     fits = (dtype == torch.bfloat16 and 1 <= b <= UNION_MAX_LANES
             and block >= 32 and block % 32 == 0 and f % block == 0
             and groups <= UNION_MAX_GROUPS and d >= 64 and d % 64 == 0
-            and max(union_smem(lanes, d, block, max_union, cluster, slice_,
-                               tile, splits)) <= UNION_SMEM_LIMIT)
+            and max(union_smem(lanes, d, block, groups, max_union, cluster,
+                               slice_, tile, splits)) <= UNION_SMEM_LIMIT)
     if fits:
         return plan
     return plan._replace(path="lanes", lanes=b, cluster=1, splits=1,
@@ -156,35 +161,43 @@ def csr_union(idx, counts, groups: int):
 
 def csr_union_plain(x, wg, wu, wd, idx, counts, *, block: int = 128,
                     cluster: int = 1, splits: int = 1):
-    """The union path's decomposition in plain PyTorch: the union of the
-    lanes' groups read once; gate and up as f32 partial products over d
+    """The union path's decomposition in plain PyTorch, lane by lane: gate
+    and up over the lane's listed groups as f32 partial products over d
     split `cluster` ways (runs of a multiple of 8 rows), summed in rank
-    order; h rounded to x's dtype and zeroed for the lanes that do not list
-    a group; the down projection as f32 partials over `splits` contiguous
-    runs of the ascending union, summed in split order and rounded once.
-    Output columns are independent, so the kernel's column tiles change
-    nothing here."""
+    order; h rounded to x's dtype; the down projection as f32 partials
+    over the `splits` fixed group ranges [s G / splits, (s + 1) G / splits),
+    each over the lane's groups in the range in ascending order, summed in
+    range order and rounded once.  The kernel also runs the union's other
+    groups through each lane's sums, as exact zeros; output columns are
+    independent, so its column tiles change nothing here.  Every product
+    a lane's row takes has a shape set by that lane's own groups, so the
+    row does not depend on the other lanes."""
     b, d = x.shape
-    ulist, lists = csr_union(idx, counts, wg.shape[1] // block)
-    n = ulist.numel()
-    if n == 0:
-        return torch.zeros_like(x)
-    cols = (ulist[:, None] * block
-            + torch.arange(block, device=x.device)).flatten()
-    xf = x.float()
-    per = -(-d // (8 * cluster)) * 8
-    g = u = 0.0
-    for r0 in range(0, d, per):
-        g = g + xf[:, r0:r0 + per] @ wg[r0:r0 + per, cols].float()
-        u = u + xf[:, r0:r0 + per] @ wu[r0:r0 + per, cols].float()
-    h = (F.silu(g) * u).to(x.dtype).float().reshape(b, n, block)
-    h = h * lists[..., None]
-    per = -(-n // splits)
-    out = 0.0
-    for u0 in range(0, n, per):
-        out = out + (h[:, u0:u0 + per].reshape(b, -1)
-                     @ wd[cols[u0 * block:(u0 + per) * block]].float())
-    return out.to(x.dtype)
+    groups = wg.shape[1] // block
+    out = torch.zeros_like(x)
+    rows = -(-d // (8 * cluster)) * 8
+    ranges = [(s * groups // splits, (s + 1) * groups // splits)
+              for s in range(splits)]
+    for lane in range(b):
+        mine, _ = csr_union(idx[lane:lane + 1], counts[lane:lane + 1],
+                            groups)
+        if mine.numel() == 0:
+            continue
+        cols = (mine[:, None] * block
+                + torch.arange(block, device=x.device)).flatten()
+        xf = x[lane:lane + 1].float()
+        g = u = 0.0
+        for r0 in range(0, d, rows):
+            g = g + xf[:, r0:r0 + rows] @ wg[r0:r0 + rows, cols].float()
+            u = u + xf[:, r0:r0 + rows] @ wu[r0:r0 + rows, cols].float()
+        h = (F.silu(g) * u).to(x.dtype).float()
+        acc = 0.0
+        for lo, hi in ranges:
+            sel = ((mine >= lo) & (mine < hi)).repeat_interleave(block)
+            if bool(sel.any()):
+                acc = acc + h[:, sel] @ wd[cols[sel]].float()
+        out[lane] = acc[0].to(x.dtype)
+    return out
 
 
 def dsg_ffn_csr(x, wg, wu, wd, idx, counts, *, block: int = 128):

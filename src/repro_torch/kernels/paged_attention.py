@@ -21,10 +21,17 @@ writes into the pools it is given and returns them.
 Two kernels, picked by `plan` from dtype and shape (never on failure): in
 bf16 with D in {64, 128, 256}, g = H / Kv a power of two with
 128 <= g * D <= 1024 and pages of at most 32 rows, the split kernel
-shares each (lane, kv head)'s page walk among a cluster of S blocks and
+shares each (lane, kv head)'s page walk among a cluster of blocks and
 merges their (m, l, acc) in rank order; f32 and other shapes take the
 serial kernel.  `paged_split_plain` is the split decomposition in plain
 PyTorch.
+
+A lane's output is a function of its own operands and of the plan's
+constants alone: the split kernel cuts a lane's walk of n pages into runs
+of ceil(n / MAX_SPLITS) pages, whatever the other lanes hold, the batch
+size or the walk bound (which the batch's deepest lane and a fused
+chunk's span set).  The walk bound sizes the grid only.  The serial
+kernel walks each lane's pages in order.
 
 Bound on the H100: bytes (see the source note in the .cu file).
 """
@@ -40,7 +47,6 @@ from repro_torch.kernels import cuda_lib
 NEG = -1e30
 THREADS = 128           # the serial kernel's threads
 SMEM_LIMIT = 48 * 1024  # the serial kernel's shared memory
-SM_COUNT = 132          # H100 SXM
 SPLIT_THREADS = 128     # kSplitThreads in paged_attention.cu
 SPLIT_STAGES = 3        # kSplitStages: pages in flight per split
 SPLIT_MAX_EPT = 8       # kMaxEpt: g * D <= SPLIT_THREADS * SPLIT_MAX_EPT
@@ -61,21 +67,29 @@ def split_smem(g: int, d: int, ps: int) -> int:
     return SPLIT_STAGES * 2 * ps * d * 2 + 4 * (2 * g * d + g * ps + 3 * g)
 
 
+def split_grid(splits: int, walk: int) -> int:
+    """Blocks per (lane, kv head) of the split kernel: the walk rounded up
+    to a power of two, at most `splits` (a lane of n <= walk pages cut
+    into runs of ceil(n / splits) pages has at most that many runs)."""
+    grid = 1
+    while grid < walk and grid < splits:
+        grid *= 2
+    return min(grid, splits)
+
+
 def plan(b: int, kv: int, g: int, d: int, ps: int, walk: int, dtype) -> Plan:
-    """The kernel and its split count for one decode step of `walk` pages:
-    the walk is split until the blocks fill the SMs, at most 8 ways and
-    into runs of at least two pages of the walk."""
+    """The kernel and its split count for one decode step of `walk` pages.
+    The split kernel cuts every lane's walk MAX_SPLITS ways, a constant, so
+    that no lane's sums depend on the batch or the walk; `blocks` counts
+    the grid the walk sizes."""
     smem = split_smem(g, d, ps)
     if (dtype != torch.bfloat16 or d not in (64, 128, 256) or g & (g - 1)
             or not SPLIT_THREADS <= g * d <= SPLIT_THREADS * SPLIT_MAX_EPT
             or not 1 <= ps <= 32 or smem > SPLIT_SMEM_LIMIT):
         return Plan("serial", 1, b * kv,
                     4 * (2 * g * d + 2 * ps * d + g * ps + 3 * g))
-    splits = 1
-    while (splits < MAX_SPLITS and 4 * splits <= walk
-           and b * kv * splits < SM_COUNT):
-        splits *= 2
-    return Plan("split", splits, b * kv * splits, smem)
+    return Plan("split", MAX_SPLITS,
+                b * kv * split_grid(MAX_SPLITS, walk), smem)
 
 
 def _walk(num_pages: int, max_pages: int) -> int:
@@ -117,11 +131,14 @@ def paged_decode_plain(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
 def paged_split_plain(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
                       window: int = 0, num_pages: int = 0, splits: int = 1):
     """The split kernel's decomposition in plain PyTorch: each lane's walk
-    of n = min(pos // ps, walk - 1) + 1 pages cut into `splits` contiguous
-    runs of ceil(n / splits) pages (later runs may be empty); each run's
-    f32 (m, l, acc), m = -1e30, l = 0, acc = 0 for a run that holds no
-    unmasked position; merged in run order and divided by max(l, 1e-20).
-    Returns (o, k_pages, v_pages) with the pools updated in place."""
+    of n = min(pos // ps, walk - 1) + 1 pages cut into contiguous runs of
+    ceil(n / splits) pages, one for each of the grid's split_grid(splits,
+    walk) blocks (later runs may be empty); each run's f32 (m, l, acc),
+    m = -1e30, l = 0, acc = 0 for a run that holds no unmasked position;
+    merged in run order and divided by max(l, 1e-20).  A lane's cut
+    depends on its n and `splits` alone; the empty runs a wider walk adds
+    merge as exact zeros.  Returns (o, k_pages, v_pages) with the pools
+    updated in place."""
     b, h, d = q.shape
     ps, kv = k_pages.shape[1], k_pages.shape[2]
     max_pages = page_table.shape[1]
@@ -143,7 +160,7 @@ def paged_split_plain(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
         per = -(-n // splits)
         qf = q[lane].float()                                   # (H, D)
         m_all, l_all, acc_all = [], [], []
-        for s in range(splits):
+        for s in range(split_grid(splits, walk)):
             j0, j1 = min(n, s * per), min(n, s * per + per)
             t = torch.arange(j0 * ps, j1 * ps, device=q.device)
             k = k_pages[pt[lane, t // ps], t % ps].float()     # (T, Kv, D)

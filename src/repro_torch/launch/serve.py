@@ -5,17 +5,21 @@ synthetic traffic through the ServingEngine, as `repro.launch.serve` does.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --workload mixed --requests 4 --cache-backend paged --dsg-serving \\
         --decode-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --workload mixed --requests 4 --temperature 0.8 --top-p 0.9 \\
+        --cache-backend paged --prefix-sharing --admission wave
     PYTHONPATH=src python -m repro_torch.launch.serve --workload mixed \\
         --requests 8 --max-seq 512 --cache-backend paged --dsg-serving
                                              # full width, on the GPU
 
 The defaults are the reference's: `--workload batch` (one batch of
 `--batch` prompts of `--prompt-len` tokens, `--gen` greedy tokens each) and
-`--cache-backend dense` for `--workload mixed`.  The model is initialised
-from a seeded torch.Generator on --device (cuda by default).  With no GPU
-and no `--device cpu` the command exits non-zero; it never falls back to
-the CPU.  Flags of the reference launcher that this port does not cover
-yet (replicas, prefix sharing, chaos, sampling, wave admission) are
+`--cache-backend dense` and `--admission overlap` for `--workload mixed`,
+whose requests sample at `--temperature` / `--top-p` (0 = greedy).  The
+model is initialised from a seeded torch.Generator on --device (cuda by
+default).  With no GPU and no `--device cpu` the command exits non-zero;
+it never falls back to the CPU.  Flags of the reference launcher that this
+port does not cover yet (replicas, routing, chaos, fault tolerance) are
 rejected: ROADMAP.md lists them.
 """
 from __future__ import annotations
@@ -37,7 +41,7 @@ def generate(cfg, model, dsg, prompts: torch.Tensor,
     """prompts (B, P) int -> greedy tokens (B, gen_tokens): one batched
     prompt prefill into a dense cache of P + gen_tokens positions, then
     token-by-token decode with the same DSG masks as the prefill (the
-    reference's `generate` at temperature 0; sampling is not ported)."""
+    reference's `generate` at temperature 0, its default)."""
     b, p_len = prompts.shape
     cache = api.make_cache(cfg, b, p_len + gen_tokens,
                            device=prompts.device)
@@ -68,10 +72,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=384)
     ap.add_argument("--prompt-bucket", type=int, default=256)
+    ap.add_argument("--admission", choices=("overlap", "wave"),
+                    default="overlap",
+                    help="admit into any free lane on any step (overlap) "
+                         "or only once every lane has drained (wave)")
     ap.add_argument("--cache-backend", choices=("dense", "paged"),
                     default="dense")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--cache-tokens", type=int, default=None)
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="map identical prompt prefixes onto shared "
+                         "refcounted pages, copied on write (--cache-backend "
+                         "paged only)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass kept when sampling")
     ap.add_argument("--decode-chunk", type=int, default=1,
                     help="decode steps fused into one dispatch (one CUDA "
                          "graph replay on the GPU); greedy streams equal "
@@ -120,6 +136,12 @@ def main(argv=None):
             and args.dsg_refresh_interval % args.decode_chunk):
         ap.error(f"--decode-chunk {args.decode_chunk} must divide "
                  f"--dsg-refresh-interval {args.dsg_refresh_interval}")
+    if args.prefix_sharing and args.cache_backend != "paged":
+        ap.error("--prefix-sharing needs --cache-backend paged")
+    if args.temperature < 0:
+        ap.error(f"--temperature must be >= 0, got {args.temperature}")
+    if not 0.0 <= args.top_p <= 1.0:
+        ap.error(f"--top-p must be in [0, 1], got {args.top_p}")
     if args.gamma is not None:
         if not 0.0 <= args.gamma < 1.0:
             ap.error(f"--gamma must be in [0, 1), got {args.gamma}")
@@ -144,15 +166,19 @@ def main(argv=None):
               f"row: {toks[0, :8].tolist()}")
         return {"tokens": toks}
 
-    reqs = mixed_requests(cfg.vocab, args.requests, seed=args.seed)
+    reqs = mixed_requests(cfg.vocab, args.requests, seed=args.seed,
+                          temperature=args.temperature, top_p=args.top_p)
     stats = run_workload(
-        cfg, model, dsg, reqs, n_slots=args.slots, max_seq=args.max_seq,
-        prompt_bucket=args.prompt_bucket, cache_backend=args.cache_backend,
-        page_size=args.page_size, cache_tokens=args.cache_tokens,
+        cfg, model, dsg, reqs, admission=args.admission, n_slots=args.slots,
+        max_seq=args.max_seq, prompt_bucket=args.prompt_bucket,
+        cache_backend=args.cache_backend, page_size=args.page_size,
+        cache_tokens=args.cache_tokens, seed=args.seed,
         dsg_serving=(DSGServingConfig(args.dsg_refresh_interval)
                      if args.dsg_serving else None),
-        decode_chunk=args.decode_chunk)
-    tag = f"overlap/{stats['cache_backend']}"
+        decode_chunk=args.decode_chunk, prefix_sharing=args.prefix_sharing)
+    tag = f"{stats['admission']}/{stats['cache_backend']}"
+    if stats["prefix_sharing"]:
+        tag += "/shared"
     if stats["decode_chunk"] > 1:
         tag += f"/chunk{stats['decode_chunk']}"
     print(f"[{tag} on {name}] {stats['requests']} requests, "
@@ -163,6 +189,11 @@ def main(argv=None):
           f"({stats['steps']} decode steps, cache "
           f"{stats['cache_bytes'] / 1e6:.2f} MB resident, "
           f"{stats['truncated']} truncated)")
+    if stats["prefix_sharing"]:
+        print(f"  prefix sharing: {stats['shared_page_hits']} page hit(s), "
+              f"{stats['cow_copies']} COW cop(ies), "
+              f"{stats['prefill_cache_hits']} prefill replay(s), peak "
+              f"{stats['peak_live_pages']} live pages")
     return stats
 
 

@@ -3,7 +3,8 @@
 The reference runs a decode chunk as one jitted `lax.scan`, compiled once
 per static shape and dispatched once per chunk.  PyTorch's counterpart of
 one dispatch is a CUDA graph, so a chunked engine on the card captures the
-chunk once per key (live-page bucket, CSR bound, refresh) and replays it:
+chunk once per key (live-page bucket, CSR bound, refresh, sample) and
+replays it:
 
     cache = GraphCache(device, words)     # one per engine
     cache.stage(arrays)                   # one copy of the host operands
@@ -12,7 +13,9 @@ chunk once per key (live-page bucket, CSR bound, refresh) and replays it:
 Every graph reads its operands from one int32 staging buffer on the
 device: the host packs them into a pinned mirror and one non-blocking copy
 moves them, so a chunk costs one copy, one replay and one read-back of the
-packed output.  All keys share one graph memory pool: their replays never
+packed output.  A sampling graph draws its noise from the staged draws
+and token indices (scheduler.gumbel_noise), so a replay reads no value
+back to the host.  All keys share one graph memory pool: their replays never
 overlap, and the engine reads each output before the next replay.
 
 A capture records the kernels' launches without running them, and a

@@ -20,13 +20,25 @@ a CUDA graph captured over a decode chunk keeps reading the live cache.
 A host-side refcounting `BlockAllocator` hands out physical pages; page 0
 is a reserved scratch page that unallocated table entries point at.  The
 host numpy page table is the source of truth, and every change is copied
-into the one persistent device table.  Prefix sharing is not ported yet
-(ROADMAP.md).
+into the one persistent device table.
+
+Copy-on-write prefix sharing (`PagedBackend(prefix_sharing=True)`): the
+allocator keeps a prefix-hash index over prompt pages (`prefix_chain`), so
+an admission whose padded prompt matches a resident prefix maps the
+existing pages (a refcount bump, no copy, no fresh page).  The only
+shared page a decode write can land in is a partial prompt-tail page;
+writing it while another lane holds it first copies it into a private
+page (`_cow`), paid for by one extra reserved page per admission with a
+partial tail, so `ensure` never runs out.  The copy runs eagerly between
+decode dispatches, never inside a captured graph.  `free` releases one
+reference; a page returns to the free list, and its index entries drop,
+only at refcount zero.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,7 +64,12 @@ class BlockAllocator:
     """Refcounting free-list allocator over physical page ids
     [reserved, n_pages).  `free` has release semantics: a page returns to
     the free list only when its refcount reaches zero.  Over-allocation
-    raises OutOfPages; freeing a page that is not live raises ValueError."""
+    raises OutOfPages; freeing a page that is not live raises ValueError.
+
+    The prefix-hash index (`register`/`lookup`) maps content keys to live
+    pages; a page's entries drop when its refcount reaches zero, so the
+    index never points at a freed page.  `peak_live` is the high-water
+    mark of distinct live pages."""
 
     def __init__(self, n_pages: int, reserved: int = 0):
         if n_pages <= reserved:
@@ -60,7 +77,10 @@ class BlockAllocator:
         self.n_pages = n_pages
         self.reserved = reserved
         self._free = list(range(n_pages - 1, reserved - 1, -1))
-        self._rc: dict = {}
+        self._rc: dict = {}                # live page -> refcount (>= 1)
+        self._index: dict = {}             # prefix key -> live page
+        self._page_keys: dict = {}         # live page -> its keys
+        self.peak_live = 0
 
     @property
     def free_pages(self) -> int:
@@ -68,7 +88,13 @@ class BlockAllocator:
 
     @property
     def live_pages(self) -> int:
+        """Distinct pages currently allocated (refcounts ignored)."""
         return len(self._rc)
+
+    def reset_peak(self) -> None:
+        """Restart the live-page high-water mark at the current
+        occupancy."""
+        self.peak_live = len(self._rc)
 
     def refcount(self, page: int) -> int:
         return self._rc.get(page, 0)
@@ -81,9 +107,11 @@ class BlockAllocator:
         out = [self._free.pop() for _ in range(n)]
         for p in out:
             self._rc[p] = 1
+        self.peak_live = max(self.peak_live, len(self._rc))
         return out
 
     def share(self, page: int) -> int:
+        """Add a reference to a live page; returns the new refcount."""
         if page not in self._rc:
             raise ValueError(f"page {page} is not currently allocated")
         self._rc[page] += 1
@@ -94,9 +122,32 @@ class BlockAllocator:
             if p not in self._rc:
                 raise ValueError(f"page {p} is not currently allocated")
             self._rc[p] -= 1
-            if not self._rc[p]:
-                del self._rc[p]
-                self._free.append(p)
+            if self._rc[p]:
+                continue
+            del self._rc[p]
+            for key in self._page_keys.pop(p, ()):
+                if self._index.get(key) == p:
+                    del self._index[key]
+            self._free.append(p)
+
+    def register(self, key: bytes, page: int) -> None:
+        """Publish a live page under a prefix content key.  The first
+        writer wins: a key already registered keeps its page."""
+        if page not in self._rc:
+            raise ValueError(
+                f"cannot register freed page {page} in the prefix index")
+        if key in self._index:
+            return
+        self._index[key] = page
+        self._page_keys.setdefault(page, []).append(key)
+
+    def lookup(self, key: bytes) -> Optional[int]:
+        """The live page registered under `key`, or None."""
+        return self._index.get(key)
+
+    @property
+    def index_size(self) -> int:
+        return len(self._index)
 
 
 def decode_view(handle: CacheHandle, free_mask: torch.Tensor,
@@ -145,12 +196,14 @@ class DenseBackend(_Backend):
             cfg, n_slots, max_seq, dtype or transformer.torch_dtype(cfg),
             device), "dense", 0)
 
-    def can_admit(self, n_tokens: int) -> bool:
+    def can_admit(self, n_tokens: int, chain=None,
+                  prompt_tokens: Optional[int] = None) -> bool:
         return True
 
     def write(self, handle: CacheHandle, slot_kv: dict, slot: int, *,
               n_tokens: Optional[int] = None,
-              reserve_tokens: Optional[int] = None) -> CacheHandle:
+              reserve_tokens: Optional[int] = None,
+              chain=None) -> CacheHandle:
         dense_merge(handle.data, slot_kv, slot)
         return handle
 
@@ -165,17 +218,59 @@ class DenseBackend(_Backend):
         return handle
 
 
+def prefix_chain(tokens: np.ndarray, page_size: int) -> list:
+    """Chained content keys, one per page of a padded prompt row: key i
+    commits to every token in positions [0, min((i + 1) page_size, len)),
+    so two rows share key i exactly when they agree on the whole prefix
+    through page i, which is when page i's K/V bytes are equal.  blake2b
+    digests, not python's salted hash(), so keys agree across processes
+    (and with the reference's)."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    if toks.ndim != 1:
+        raise ValueError(f"prefix_chain wants a 1-D token row, "
+                         f"got shape {toks.shape}")
+    keys, prev = [], b""
+    for start in range(0, len(toks), page_size):
+        blk = toks[start:start + page_size].tobytes()
+        prev = hashlib.blake2b(prev + blk, digest_size=16).digest()
+        keys.append(prev)
+    return keys
+
+
+def _lane_pages(lane_leaf: torch.Tensor, n_lp: int, ps: int) -> torch.Tensor:
+    """The leading n_lp pages of a 1-lane dense cache leaf (L, 1, S, Kv, D)
+    as (L, n_lp, ps, Kv, D)."""
+    l, _, _, kv, d = lane_leaf.shape
+    return lane_leaf[:, 0, :n_lp * ps].reshape(l, n_lp, ps, kv, d)
+
+
 def _paged_merge(pools: dict, lane: dict, pp: torch.Tensor) -> None:
     """Copy the leading len(pp) pages of a 1-lane dense cache into the
     physical pages pp of the pools, in place.  Fresh pages are overwritten
     whole, so a previous occupant's K/V cannot leak."""
     ps = pools["pages_k"].shape[2]
-    n_lp = pp.shape[0]
     for pool, lane_leaf in ((pools["pages_k"], lane["k"]),
                             (pools["pages_v"], lane["v"])):
-        l, _, _, kv, d = lane_leaf.shape
-        chunks = lane_leaf[:, 0, :n_lp * ps].reshape(l, n_lp, ps, kv, d)
-        pool[:, pp] = chunks.to(pool.dtype)
+        pool[:, pp] = _lane_pages(lane_leaf, pp.shape[0], ps).to(pool.dtype)
+
+
+def _paged_merge_subset(pools: dict, lane: dict, pp: torch.Tensor,
+                        lps: torch.Tensor, n_lp: int) -> None:
+    """_paged_merge for a shared-prefix admission: copy only the logical
+    pages `lps` (the ones not shared) of the lane's first n_lp pages into
+    the physical pages pp.  Shared pages already hold the same bytes, and
+    other lanes read them."""
+    ps = pools["pages_k"].shape[2]
+    for pool, lane_leaf in ((pools["pages_k"], lane["k"]),
+                            (pools["pages_v"], lane["v"])):
+        pool[:, pp] = _lane_pages(lane_leaf, n_lp, ps)[:, lps].to(pool.dtype)
+
+
+def _page_copy(pools: dict, src: int, dst: int) -> None:
+    """Copy one physical page across every layer, in place: the copy half
+    of copy-on-write."""
+    for name in ("pages_k", "pages_v"):
+        pools[name][:, dst] = pools[name][:, src]
 
 
 class PagedBackend(_Backend):
@@ -184,16 +279,21 @@ class PagedBackend(_Backend):
     The pool holds `total_tokens` worth of pages (default: the dense worst
     case n_slots * max_seq).  Admission reserves the pages a request could
     ever need, and `can_admit` gates on free-minus-reserved, so `ensure`
-    never runs out mid-decode.  One backend manages one live handle."""
+    (and copy-on-write) never runs out mid-decode.  One backend manages
+    one live handle."""
 
     kind = "paged"
 
     def __init__(self, page_size: int = 16,
-                 total_tokens: Optional[int] = None):
+                 total_tokens: Optional[int] = None,
+                 prefix_sharing: bool = False):
         if page_size <= 0:
             raise ValueError("page_size must be positive")
         self.page_size = page_size
         self.total_tokens = total_tokens
+        self.prefix_sharing = bool(prefix_sharing)
+        self.cow_copies = 0             # copy-on-write events
+        self.shared_page_hits = 0       # pages mapped without a copy
         self.allocator: Optional[BlockAllocator] = None
         self._table: Optional[np.ndarray] = None
         self._resv: Optional[np.ndarray] = None
@@ -221,8 +321,8 @@ class PagedBackend(_Backend):
         self._device = torch.device(device)
         self._dev_table = torch.from_numpy(self._table.copy()).to(
             self._device)
-        return CacheHandle({"pages_k": pool["k"], "pages_v": pool["v"],
-                            "page_table": self._dev_table},
+        self._pools = {"pages_k": pool["k"], "pages_v": pool["v"]}
+        return CacheHandle({**self._pools, "page_table": self._dev_table},
                            "paged", self.page_size)
 
     def _push_table(self, handle: CacheHandle) -> CacheHandle:
@@ -230,57 +330,145 @@ class PagedBackend(_Backend):
         self._dev_table.copy_(torch.from_numpy(self._table))
         return handle
 
-    def can_admit(self, n_tokens: int) -> bool:
-        return (self.allocator.free_pages - int(self._resv.sum())
-                >= self.pages_for(n_tokens))
+    def shared_hits(self, chain: Optional[Sequence[bytes]]) -> int:
+        """The leading run of chain keys with a live indexed page: the
+        pages an admission with this chain would map instead of
+        allocating.  Every holder maps a contiguous leading prefix, so the
+        scan stops at the first miss."""
+        if not self.prefix_sharing or chain is None:
+            return 0
+        hits = 0
+        for key in chain:
+            if self.allocator.lookup(key) is None:
+                break
+            hits += 1
+        return hits
 
-    def write(self, handle: CacheHandle, slot_kv: dict, slot: int, *,
-              n_tokens: int, reserve_tokens: Optional[int] = None
-              ) -> CacheHandle:
+    def sharing_adjustment(self, chain,
+                           prompt_tokens: Optional[int]) -> int:
+        """Page-count adjustment for a sharing admission: minus the full
+        prompt pages already resident (mapped, not allocated), plus one
+        copy-on-write page when the prompt's tail part-fills its page, the
+        one shared page a decode write can land in.  The +1 is charged
+        whether or not the tail is shared yet: a later admission can share
+        it, and this lane then needs the copy for its own next write."""
+        if not self.prefix_sharing or prompt_tokens is None:
+            return 0
+        tail = 1 if prompt_tokens % self.page_size else 0
+        full = prompt_tokens // self.page_size
+        saved = min(self.shared_hits(chain), full) if chain else 0
+        return tail - saved
+
+    def can_admit(self, n_tokens: int, chain=None,
+                  prompt_tokens: Optional[int] = None) -> bool:
+        """True when free-minus-reserved pages cover a request reserving
+        n_tokens (with sharing, credited and charged as `write` will)."""
+        need = (self.pages_for(n_tokens)
+                + self.sharing_adjustment(chain, prompt_tokens))
+        return self.allocator.free_pages - int(self._resv.sum()) >= need
+
+    def write(self, handle: CacheHandle, slot_kv: Optional[dict], slot: int,
+              *, n_tokens: int, reserve_tokens: Optional[int] = None,
+              chain: Optional[Sequence[bytes]] = None) -> CacheHandle:
         """Splice a prefilled 1-lane dense cache into lane `slot`: allocate
         pages for the first n_tokens positions, copy the lane's K/V into
-        them, and reserve growth pages up to reserve_tokens."""
+        them, and reserve growth pages up to reserve_tokens.  With prefix
+        sharing, `chain` (one prefix_chain key per prompt page) maps the
+        leading resident run by refcount bump and registers the fresh
+        pages; when every prompt page is shared, slot_kv may be None (no
+        prefill output is needed)."""
+        if n_tokens is None:
+            raise ValueError("paged write needs n_tokens (the prompt extent)")
         self._release(slot)
         n_lp = self.pages_for(n_tokens)
         need = (max(self.pages_for(reserve_tokens), n_lp)
                 if reserve_tokens else n_lp)
-        pp = self.allocator.alloc(n_lp)
-        self._table[slot, :n_lp] = pp
-        self._resv[slot] = need - n_lp
-        _paged_merge(handle.data, slot_kv,
-                     torch.tensor(pp, dtype=torch.long, device=self._device))
+        sharing = self.prefix_sharing and chain is not None
+        hits = 0
+        if sharing:
+            if len(chain) != n_lp:
+                raise ValueError(f"chain must carry one key per prompt page "
+                                 f"({n_lp}), got {len(chain)}")
+            hits = self.shared_hits(chain)
+        fresh = list(range(hits, n_lp))
+        if fresh and slot_kv is None:
+            raise ValueError(f"write(slot_kv=None) needs every prompt page "
+                             f"shared ({hits} of {n_lp} resident)")
+        # allocate before sharing: a raise leaves no dangling refcounts
+        pp = self.allocator.alloc(len(fresh))
+        for lp in range(hits):
+            pg = self.allocator.lookup(chain[lp])
+            self.allocator.share(pg)
+            self._table[slot, lp] = pg
+        self.shared_page_hits += hits
+        for lp, pg in zip(fresh, pp):
+            self._table[slot, lp] = pg
+            if sharing:
+                self.allocator.register(chain[lp], pg)
+        # growth pages past the prompt, plus the partial tail's COW page
+        tail = 1 if sharing and n_tokens % self.page_size else 0
+        self._resv[slot] = need - n_lp + tail
+        if fresh:
+            dev_pp = torch.tensor(pp, dtype=torch.long, device=self._device)
+            if hits:
+                _paged_merge_subset(handle.data, slot_kv, dev_pp,
+                                    torch.tensor(fresh, dtype=torch.long,
+                                                 device=self._device), n_lp)
+            else:
+                _paged_merge(handle.data, slot_kv, dev_pp)
         return self._push_table(handle)
 
-    def ensure(self, handle: CacheHandle, slot: int, pos: int) -> CacheHandle:
-        """Map the page covering a write at `pos` (no-op when mapped)."""
-        lp = pos // self.page_size
-        if self._table[slot, lp] != NULL_PAGE:
-            return handle
+    def _cow(self, slot: int, lp: int) -> None:
+        """Copy-on-write lane `slot`'s logical page lp into a private page
+        (the lane is about to write a page other lanes still read): copy
+        the bytes, release this lane's reference on the shared page (never
+        freeing it: other holders remain) and spend the reserved page.
+        The caller pushes the table."""
+        old = int(self._table[slot, lp])
+        (new,) = self.allocator.alloc(1)
+        self.allocator.free([old])      # rc > 1: decrements, stays live
+        self._table[slot, lp] = new
+        self._resv[slot] = max(int(self._resv[slot]) - 1, 0)
+        self.cow_copies += 1
+        _page_copy(self._pools, old, new)
+
+    def _map(self, slot: int, lp: int) -> bool:
+        """Make lane `slot`'s logical page lp writable: map a fresh page,
+        or copy a shared one; returns whether the table changed."""
+        pg = int(self._table[slot, lp])
+        if pg != NULL_PAGE:
+            if self.prefix_sharing and self.allocator.refcount(pg) > 1:
+                self._cow(slot, lp)
+                return True
+            return False
         (pg,) = self.allocator.alloc(1)
         self._table[slot, lp] = pg
         self._resv[slot] = max(int(self._resv[slot]) - 1, 0)
-        return self._push_table(handle)
+        return True
+
+    def ensure(self, handle: CacheHandle, slot: int, pos: int) -> CacheHandle:
+        """Make the page covering a write at `pos` writable: a no-op when
+        it is mapped and held by this lane alone."""
+        if self._map(slot, pos // self.page_size):
+            return self._push_table(handle)
+        return handle
 
     def ensure_range(self, handle: CacheHandle, slot: int, start: int,
                      stop: int) -> CacheHandle:
-        """Map every page covering writes in [start, stop): a fused decode
-        chunk's pages, mapped ahead of it since its micro-steps cannot grow
-        the table mid-dispatch, and copied to the device once.  The caller
-        clamps `stop` to the lane's budget, so the mapping stays inside its
-        admission-time reservation."""
+        """Make every page covering writes in [start, stop) writable: a
+        fused decode chunk's pages, mapped (and copied-on-write) ahead of
+        it, since its micro-steps cannot change the table mid-dispatch,
+        and pushed to the device once.  The caller clamps `stop` to the
+        lane's budget, so the mapping stays inside its admission-time
+        reservation."""
         grew = False
         for lp in range(start // self.page_size,
                         (stop - 1) // self.page_size + 1):
-            if self._table[slot, lp] != NULL_PAGE:
-                continue
-            (pg,) = self.allocator.alloc(1)
-            self._table[slot, lp] = pg
-            self._resv[slot] = max(int(self._resv[slot]) - 1, 0)
-            grew = True
+            grew |= self._map(slot, lp)
         return self._push_table(handle) if grew else handle
 
     def free(self, handle: CacheHandle, slot: int) -> CacheHandle:
-        """Return lane `slot`'s pages to the free list (retirement)."""
+        """Release lane `slot`'s pages (retirement)."""
         self._release(slot)
         return self._push_table(handle)
 
@@ -293,10 +481,15 @@ class PagedBackend(_Backend):
 
 
 def get_backend(name: str, *, page_size: int = 16,
-                total_tokens: Optional[int] = None):
+                total_tokens: Optional[int] = None,
+                prefix_sharing: bool = False):
     """Factory: "dense" -> DenseBackend, "paged" -> PagedBackend."""
     if name == "dense":
+        if prefix_sharing:
+            raise ValueError("prefix_sharing needs the paged backend: the "
+                             "dense layout has no pages to share")
         return DenseBackend()
     if name == "paged":
-        return PagedBackend(page_size=page_size, total_tokens=total_tokens)
+        return PagedBackend(page_size=page_size, total_tokens=total_tokens,
+                            prefix_sharing=prefix_sharing)
     raise ValueError(f"unknown cache backend {name!r} (dense or paged)")

@@ -224,6 +224,81 @@ def test_dsg_ffn_csr_union_sweep_on_card(cuda, case):
         assert not got[1].any()
 
 
+# other lanes' positions and the dispatch's span for the co-scheduling
+# checks: alone, shallow (walk 16), deep (walk 32), a fused chunk's span
+COSCHED_PAGED = {"alone": ([], 1), "shallow": ([3, 40, 90], 1),
+                 "deep": ([500, 260, 17], 1), "chunk8": ([3, 40, 245], 8)}
+
+
+def _paged_target_row(cuda, others, span):
+    """The target lane (position 150: 10 pages; the same q, new K/V and
+    page contents in every batch) at index 1 of a batch (index 0 alone)
+    through `paged_decode` at the walk bound the engine gives this batch
+    and span; returns its output row on the split path."""
+    from repro_torch.serving.scheduler import live_page_bound
+    bf, ps, max_pages, target = torch.bfloat16, 16, 32, 150
+    t = _paged_inputs(np.random.default_rng(61), 1, 16, 8, 128, ps,
+                      max_pages, [target], bf, cuda)
+    pos = list(others)
+    at = min(1, len(pos))
+    pos.insert(at, target)
+    args = list(_paged_inputs(np.random.default_rng(62 + len(others)),
+                              len(pos), 16, 8, 128, ps, max_pages, pos, bf,
+                              cuda))
+    for i in range(3):
+        args[i][at] = t[i][0]
+    for j in range(target // ps + 1):
+        for i in (3, 4):
+            args[i][args[5][at, j]] = t[i][t[5][0, j]]
+    walk = live_page_bound(min(max(pos) + span - 1, ps * max_pages - 1), ps,
+                           max_pages)
+    assert paged_attention.plan(len(pos), 8, 2, 128, ps, walk,
+                                bf).path == "split"
+    o, _, _ = _run_paged(paged_attention.paged_decode, args, num_pages=walk)
+    return o[at]
+
+
+@pytest.mark.parametrize("batch", ["shallow", "deep", "chunk8"])
+def test_paged_decode_lane_ignores_co_resident_lanes_on_card(cuda, batch):
+    """The split kernel gives a lane the row it has alone, bit for bit,
+    whatever its co-resident lanes' depths, the walk bound they set and a
+    fused chunk's span."""
+    alone = _paged_target_row(cuda, *COSCHED_PAGED["alone"])
+    assert torch.equal(_paged_target_row(cuda, *COSCHED_PAGED[batch]), alone)
+
+
+def _csr_target_row(cuda, case):
+    """Lane 2 of a 4-lane union CSR step at the full-width shape, with the
+    same x row and groups in every case, among lanes of another case's
+    groups: `mirrored` is the lane alone (free serving lanes mirror it)."""
+    rng = np.random.default_rng(63)
+    bf = torch.bfloat16
+    x, wg, wu, wd = _csr_weights(rng, 4, 2048, 8192, bf, cuda)
+    idx, counts = _csr_case(np.random.default_rng(64), "padded")
+    target_idx, target_n = idx[0].copy(), counts[0]
+    if case != "mirrored":
+        idx, counts = _csr_case(np.random.default_rng(65), case)
+    else:
+        idx[:], counts[:] = target_idx, target_n
+    idx[2], counts[2] = target_idx, target_n
+    x = x.clone()
+    x[:2], x[3] = x[2] * 0.5, x[2] * -1.5
+    got = dsg_ffn.dsg_ffn_csr(x, wg, wu, wd,
+                              *(torch.from_numpy(a).to(cuda)
+                                for a in (idx, counts)))
+    return got[2]
+
+
+@pytest.mark.parametrize("case", ["padded", "empty", "full", "disjoint"])
+def test_dsg_ffn_csr_lane_ignores_co_resident_groups_on_card(cuda, case):
+    """The union kernels give a lane the row it has alone, bit for bit,
+    whatever groups the other lanes list."""
+    assert dsg_ffn.csr_plan(4, 2048, 8192, 32, 128,
+                            torch.bfloat16).path == "union"
+    assert torch.equal(_csr_target_row(cuda, case),
+                       _csr_target_row(cuda, "mirrored"))
+
+
 def _csr_union_launch(x, wg, wu, wd, idx, counts, block, cluster, splits,
                       tile):
     b, d = x.shape
@@ -764,6 +839,50 @@ def test_engine_backends_and_chunks_card_match_cpu_on_card(
     assert (_smoke_streams(cuda, dsg_serving, backend, chunk)
             == _smoke_streams(torch.device("cpu"), dsg_serving, backend,
                               chunk))
+
+
+@pytest.mark.parametrize("backend,chunk,dsg_on,sharing", [
+    ("paged", 1, True, None), ("dense", 8, False, None),
+    ("paged", 1, False, 28), ("paged", 8, True, 20)])
+def test_sampling_and_prefix_sharing_card_match_cpu_on_card(
+        cuda, backend, chunk, dsg_on, sharing):
+    """Half the requests sampled (temperature 0.8, top_p 0.9; the noise is
+    an integer hash, the same bits on both devices), and prefix sharing
+    over 28-token prompts whose first `sharing` tokens agree (all 28:
+    identical prompts, a shared partial tail copied on write): the card's
+    streams (graph replays at chunk 8, the sampling graphs among them)
+    equal the CPU's."""
+    from repro_torch.serving.workload import shared_prefix_requests
+
+    def streams(device):
+        cfg = configs.get_smoke_config("internlm2-1.8b")
+        cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+        gen = torch.Generator().manual_seed(0)
+        model = api.init_model(cfg, generator=gen, device="cpu")
+        dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+        model = model.to(device)
+        dsg = {k: v.to(device) for k, v in dsg.items()}
+        if sharing is None:
+            reqs, kw = _smoke_requests(cfg.vocab), {}
+        else:
+            reqs = shared_prefix_requests(cfg.vocab, 6, prompt_len=28,
+                                          prefix_len=sharing, max_new=7,
+                                          seed=29)
+            kw = dict(buckets=(28,), prefix_sharing=True)
+        for r in reqs[1::2]:
+            r.temperature, r.top_p = 0.8, 0.9
+        eng = ServingEngine(cfg, model, dsg, n_slots=2, max_seq=64,
+                            prompt_bucket=32, page_size=8,
+                            cache_backend=backend, decode_chunk=chunk,
+                            dsg_serving=DSGServingConfig(8) if dsg_on
+                            else None, **kw)
+        for r in reqs:
+            eng.submit(r)
+        out = {u: list(r.output) for u, r in eng.run(400).items()}
+        if eng.graphs is not None:
+            assert any(k[-1] for k in eng.graphs.graphs)   # a sample key
+        return out
+    assert streams(cuda) == streams(torch.device("cpu"))
 
 
 @pytest.mark.parametrize("backend", ["dense", "paged"])

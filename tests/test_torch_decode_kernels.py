@@ -1,9 +1,10 @@
 """The decode-step kernels' decompositions and plans, on the CPU.
 
 The bf16 group-CSR FFN reads the union of the lanes' groups once (gate/up
-split over d by cluster rank, the down projection split over runs of the
-union, each summed in order), and the bf16 paged decode step splits each
-lane's page walk S ways and merges the splits' (m, l, acc) in order.
+split over d by cluster rank, the down projection split over fixed ranges
+of the group index, each summed in order), and the bf16 paged decode step
+splits each lane's page walk S ways and merges the splits' (m, l, acc) in
+order.
 Their plain PyTorch versions (`dsg_ffn.csr_union_plain`,
 `paged_attention.paged_split_plain`) are held here against the Pallas
 kernels in interpret mode, with inputs made by numpy from a seed; the
@@ -96,8 +97,8 @@ CSR_CASES = ["padded", "empty", "full", "mirrored", "disjoint"]
 @pytest.mark.parametrize("case", CSR_CASES)
 def test_csr_union_plain_matches_pallas(case, dtype, cluster, splits):
     """The union decomposition over every sweep case, with d split 1, 4
-    and 8 ways and the union split 1, 3 (ragged) and 8 ways (more splits
-    than union groups leaves some empty)."""
+    and 8 ways and the group range split 1, 3 (ragged) and 8 ways (a split
+    whose range holds no listed group stays empty)."""
     j, t = _csr_inputs(case, dtype)
     want = _pallas_csr(*j, block=CSR_BLOCK, interpret=True)
     got = dsg_ffn.csr_union_plain(*t, block=CSR_BLOCK, cluster=cluster,
@@ -226,7 +227,7 @@ def test_csr_plan_main_shape_fills_the_card():
     assert p.path == "union" and p.lanes == 4 and p.max_union == 64
     assert p.gate_up_blocks >= 132 and p.down_blocks >= 132
     assert 2048 % p.tile == 0 and p.slice == 128
-    assert max(dsg_ffn.union_smem(p.lanes, 2048, 128, p.max_union,
+    assert max(dsg_ffn.union_smem(p.lanes, 2048, 128, 64, p.max_union,
                                   p.cluster, p.slice, p.tile,
                                   p.splits)) <= dsg_ffn.UNION_SMEM_LIMIT
 
@@ -264,23 +265,25 @@ def test_paged_plan_main_shape_fills_the_card(walk):
     assert p.smem == paged_attention.split_smem(2, 128, 16)
 
 
-@pytest.mark.parametrize("b,kv,g,d,ps,walk,dtype,path,splits", [
+@pytest.mark.parametrize("b,kv,g,d,ps,walk,dtype,path,grid", [
     (4, 8, 2, 128, 16, 32, torch.float32, "serial", 1),
     (4, 2, 2, 16, 8, 8, torch.float32, "serial", 1),
     (4, 2, 2, 16, 8, 8, torch.bfloat16, "serial", 1),
     (4, 1, 16, 128, 16, 32, torch.bfloat16, "serial", 1),
     (4, 8, 3, 128, 16, 32, torch.bfloat16, "serial", 1),
     (4, 8, 2, 128, 64, 32, torch.bfloat16, "serial", 1),
-    (4, 8, 2, 128, 16, 2, torch.bfloat16, "split", 1),
-    (4, 8, 2, 128, 16, 5, torch.bfloat16, "split", 2),
+    (4, 8, 2, 128, 16, 2, torch.bfloat16, "split", 2),
+    (4, 8, 2, 128, 16, 5, torch.bfloat16, "split", 8),
     (1, 8, 2, 64, 16, 64, torch.bfloat16, "split", 8),
-    (64, 8, 1, 128, 16, 64, torch.bfloat16, "split", 1),
+    (64, 8, 1, 128, 16, 64, torch.bfloat16, "split", 8),
     (4, 2, 2, 256, 32, 16, torch.bfloat16, "split", 8)])
 def test_paged_plan_picks_kernel_by_dtype_and_shape(b, kv, g, d, ps, walk,
-                                                    dtype, path, splits):
+                                                    dtype, path, grid):
     """f32, head widths other than 64, 128 and 256, query groups that are
     not a power of two or too wide, and pages over 32 rows take the serial
-    kernel; the split count stops at 8, at half the walk and once the
-    blocks fill the SMs."""
+    kernel.  The split kernel cuts every lane's walk 8 ways whatever the
+    batch and the walk, and its grid holds the walk rounded up to a power
+    of two blocks per (lane, kv head), at most 8."""
     p = paged_attention.plan(b, kv, g, d, ps, walk, dtype)
-    assert (p.path, p.splits) == (path, splits)
+    want = paged_attention.MAX_SPLITS if path == "split" else 1
+    assert (p.path, p.splits, p.blocks) == (path, want, b * kv * grid)

@@ -78,9 +78,15 @@ def test_engine_streams_identical_to_reference(dsg_on):
 
 
 def test_request_refuses_sampling():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scheduler.Request(uid=0, prompt=np.zeros(4, np.int32),
-                          temperature=0.7)
+    """Sampling is ported, so a request at temperature > 0 is taken; the
+    sampling parameters it refuses are the ones no sampler can honour."""
+    r = scheduler.Request(uid=0, prompt=np.zeros(4, np.int32),
+                          temperature=0.7, top_p=0.9)
+    assert (r.temperature, r.top_p) == (0.7, 0.9)
+    for bad in (dict(temperature=-0.5), dict(top_p=1.5),
+                dict(top_p=-0.1), dict(temperature=float("nan"))):
+        with pytest.raises(ValueError):
+            scheduler.Request(uid=0, prompt=np.zeros(4, np.int32), **bad)
 
 
 def test_bucket_and_page_bounds():
@@ -124,9 +130,10 @@ def test_serve_cli_needs_a_gpu_unless_told_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--replicas", "2"], "ROADMAP"), (["--temperature", "0.7"], "ROADMAP"),
-    (["--prefix-sharing"], "ROADMAP"), (["--chaos", "crash"], "ROADMAP"),
-    (["--admission", "wave"], "ROADMAP"),
+    (["--replicas", "2"], "ROADMAP"), (["--route-policy", "least_pages"],
+                                       "ROADMAP"),
+    (["--fault-tolerance"], "ROADMAP"), (["--chaos", "crash"], "ROADMAP"),
+    (["--exec-mode", "threaded"], "ROADMAP"),
     (["--paged-kernel", "xla"], "invalid choice"),
     (["--dsg-apply", "dense"], "invalid choice")])
 def test_serve_cli_rejects_unported_flags(flag, says, capsys):
