@@ -124,6 +124,28 @@ result line):
             chunk 8, and a 17th whose deadline lapses in the queue: the 16
             finish ok, the 17th retires timed_out; prints TTFT and TPOT
             p50/p95.
+19. train — the training path at full width, after phase 9, once the
+            serve phases' model, engines and graph pools are freed and the
+            peak memory counter is reset: internlm2-1.8b (24 layers, d=2048,
+            F=8192, vocab 92544, bf16 with f32 master weights), random
+            weights from a seeded torch.Generator, DSG mask mode (gamma 0.5,
+            shared threshold, block 128) with remat, `launch.train.train`
+            for 12 AdamW steps on batch 8 x seq 256 of the synthetic stream,
+            f(W) refreshed every 4 steps (the config's 50 never comes in 12),
+            no fault injector and no checkpoint.  Fails unless every loss is
+            finite, the last is below the first, no step was retried, f(W)
+            was refreshed after steps 4, 8 and 12, and the FFN took the
+            masked DSG path in every layer of every step (the forward and
+            the remat recompute, by `swiglu_ffn.calls`).  Prints the loss per
+            step, the step ms p50/p95 of steps 2-12 (each ending in a
+            read-back of its metrics), training tokens/s, the model FLOPs
+            utilisation 6 x N x tokens / step / 989 TFLOP/s (N the
+            non-embedding parameters plus the LM head), each layer's mean
+            kept fraction, the peak allocated memory beside the stash
+            model's dense and DSG totals, and the kernels' launches during
+            the run (none: no kernel lies on the training path).  Then the
+            smoke model's 4 training steps on the card against the CPU
+            (f32, TF32 off): losses to rtol 1e-5 and every DRS mask equal.
 Phases 15-18 each count the kernels' launches from 0, by the graph cache
 for the chunked runs (phase 10's accounting) and by the wrappers' counters
 for the eager one; each must have launched every serve-path kernel.
@@ -135,7 +157,9 @@ imports nothing of JAX or of the `repro` package.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -539,6 +563,266 @@ def smoke_streams(device, dsg_serving, cache_backend="paged",
     for r in reqs:
         eng.submit(r)
     return {u: r.output for u, r in eng.run(400).items()}
+
+
+class MaskLog:
+    """Wraps `dsg_linear.drs_group_mask`: passes every call through and
+    keeps each mask (on the host with `keep`), or adds each forward
+    mask's kept fraction to its layer's sum on the device.  Under remat a
+    step calls it 2 x layers times: the forward (layers in order), then
+    the backward's recompute (in reverse)."""
+
+    def __init__(self, fn, n_layers, keep=False, device=None):
+        import torch
+        self.fn, self.n_layers, self.keep = fn, n_layers, keep
+        self.masks, self.calls = [], 0
+        self.kept = torch.zeros(n_layers, device=device)
+
+    def __call__(self, x, state, cfg):
+        m = self.fn(x, state, cfg)
+        i = self.calls % (2 * self.n_layers)
+        if self.keep:
+            self.masks.append(m.cpu())
+        elif i < self.n_layers:
+            self.kept[i] += m.mean()
+        self.calls += 1
+        return m
+
+
+def smoke_training(device, steps=4):
+    """The smoke model (f32) trained `steps` steps from one CPU
+    initialisation (batch 4 x seq 32, DSG mask mode with the shared
+    threshold, refresh every 2): the losses and every DRS mask of the
+    forward passes."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import dsg_linear
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    cfg = configs.get_smoke_config(ARCH)
+    cfg = cfg.replace(dsg=cfg.dsg._replace(refresh_every=2))
+    gen = torch.Generator().manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = {k: v.to(device) for k, v in api.init_dsg(
+        model, cfg, generator=gen, device="cpu").items()}
+    model = model.to(device)
+    log = MaskLog(dsg_linear.drs_group_mask, cfg.n_layers, keep=True)
+    dsg_linear.drs_group_mask = log
+    try:
+        _, hist, _ = train.train(cfg, steps=steps, global_batch=4, seq_len=32,
+                                 seed=SEED, device=device, init=(model, dsg),
+                                 log_every=steps)
+    finally:
+        dsg_linear.drs_group_mask = log.fn
+    n = cfg.n_layers
+    forward = [m for i, m in enumerate(log.masks) if i % (2 * n) < n]
+    return [h["loss"] for h in hist], forward
+
+
+def busy(prof) -> dict:
+    """The device's busy time (the union of its kernel and copy intervals)
+    in a profiled window, the window from its first to its last activity,
+    and the 8 kernels with the most device time."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    total, end, by_name = 0.0, spans[0][0], {}
+    for s, e, name in spans:
+        total += max(0.0, e - max(s, end))
+        end = max(end, e)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e - s, n + 1)
+    window = end - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"busy_ms": total / 1e3, "window_ms": window / 1e3,
+            "busy_share": total / window, "kernels": len(spans),
+            "by_kernel": [{"name": n[:70], "ms": t / 1e3, "count": c}
+                          for n, (t, c) in top]}
+
+
+def train_breakdown(state, cfg, acfg, batch) -> dict:
+    """Where one more full-width training step's time goes: the loss and
+    its gradients (forward, remat recompute, backward), then the AdamW
+    update, each timed alone between synchronizes on the host's clock and
+    once more under torch.profiler (device busy time, busy share of the
+    window, the kernels with the most device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    model = state["model"]
+    params = dict(model.named_parameters())
+
+    def grads():
+        loss = api.train_loss(model, state["dsg"], cfg, batch)
+        return dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    def update(g):
+        adamw.apply_updates(params, g, state["opt"], acfg)
+
+    out = {}
+    for rep in range(2):          # the second pass is the one kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = grads()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        update(g)
+        torch.cuda.synchronize()
+        out = {"loss_grad_ms": 1e3 * (t1 - t0),
+               "adamw_ms": 1e3 * (time.perf_counter() - t1)}
+        del g
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        g = grads()
+        torch.cuda.synchronize()
+    out["loss_grad_device"] = busy(prof)
+    with profile(activities=acts) as prof:
+        update(g)
+        torch.cuda.synchronize()
+    out["adamw_device"] = busy(prof)
+    return out
+
+
+def train_phase(dev, kernels) -> dict:
+    """Phase 19: internlm2-1.8b at full width in bf16 with f32 master
+    weights, DSG masks and remat, trained 12 AdamW steps on batch 8 x seq
+    256 of the synthetic stream; then the smoke model's 4 steps on the
+    card against the CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import dsg_linear, stash
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    kernels = dict(kernels, dsg_ffn=dsg_ffn.dsg_ffn,
+                   flash_attention=flash_attention.flash_attention)
+    steps, batch, seq, refresh = 12, 8, 256, 4
+    cfg = configs.get_config(ARCH)
+    # the config refreshes f(W) every 50 steps, which a 12-step run never
+    # reaches: every 4 here, so the refresh runs at steps 4, 8 and 12
+    cfg = cfg.replace(dsg=cfg.dsg._replace(refresh_every=refresh))
+    if not (cfg.remat and cfg.dsg.enabled and cfg.dsg.mode == "mask"):
+        fail(f"the training config is not DSG mask mode with remat: {cfg}")
+    n = cfg.n_layers
+    log = MaskLog(dsg_linear.drs_group_mask, n, device=dev)
+    dsg_linear.drs_group_mask = log
+    torch.cuda.reset_peak_memory_stats()
+    for w in kernels.values():
+        w.launches = 0
+    dsg_linear.swiglu_ffn.calls.update(dict.fromkeys(dsg_linear.FFN_MODES, 0))
+    t0 = time.perf_counter()
+    try:
+        state, hist, monitor = train.train(
+            cfg, steps=steps, global_batch=batch, seq_len=seq, seed=SEED,
+            device=dev, log_every=steps)
+        torch.cuda.synchronize()
+    finally:
+        dsg_linear.drs_group_mask = log.fn
+    wall = time.perf_counter() - t0
+    calls = dict(dsg_linear.swiglu_ffn.calls)
+    launches = {k: w.launches for k, w in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    refreshed = [h["step"] + 1 for h in hist if h["refresh"]]
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.embed.numel()
+    ms = sorted(1e3 * h["seconds"] for h in hist[1:])
+    p50 = ms[len(ms) // 2]
+    p95 = ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))]
+    tokens = batch * seq
+    kept = (log.kept / steps).tolist()
+    param_bytes = n_params * (2 + 2 + 12)    # bf16 w + grad, f32 m, v, master
+    fp = stash.training_footprint([(batch, seq, cfg.d_ff)] * n,
+                                  cfg.dsg.gamma, cfg.dsg.block, param_bytes)
+    out = {"steps": len(hist), "losses": losses, "step_ms": [
+        1e3 * h["seconds"] for h in hist], "step_ms_p50": p50,
+        "step_ms_p95": p95, "tokens_per_s": 1e3 * tokens / p50,
+        "mfu": 6 * n_matmul * tokens / (p50 / 1e3) / PEAK_FLOPS[
+            "torch.bfloat16"], "n_params": n_params, "n_matmul": n_matmul,
+        "refreshed_at": refreshed, "retries": len(monitor.failures),
+        "ffn_calls": calls, "kernel_launches": launches,
+        "kept_fraction_by_layer": kept, "peak_allocated_bytes": peak,
+        "stash_model": fp, "wall_s": wall,
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "lrs": [h["lr"] for h in hist]}
+    acfg = adamw.AdamWConfig(total_steps=steps,
+                             warmup=min(20, steps // 5 + 1))
+    extra = {k: v.to(dev) for k, v in synthetic.batch_at(
+        steps, global_batch=batch, seq_len=seq, vocab=cfg.vocab,
+        seed=SEED).items()}
+    out["breakdown"] = br = train_breakdown(state, cfg, acfg, extra)
+    del state, model
+    for h in hist:
+        print(f"[train] step {h['step'] + 1}: loss {h['loss']:.4f}, "
+              f"grad norm {h['grad_norm']:.4f}, lr {h['lr']:.3g}, "
+              f"{1e3 * h['seconds']:.1f} ms"
+              + (", f(W) refreshed" if h["refresh"] else ""), flush=True)
+    print(f"[train] {ARCH} full width ({n} layers, d={cfg.d_model}, "
+          f"F={cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params in "
+          f"{cfg.dtype} with f32 master weights), DSG mask mode gamma "
+          f"{cfg.dsg.gamma} block {cfg.dsg.block} threshold "
+          f"{cfg.dsg.threshold_mode}, remat on, batch {batch} x seq {seq}, "
+          f"{steps} AdamW steps, refresh every {refresh} (the config's "
+          f"{configs.get_config(ARCH).dsg.refresh_every} would not refresh "
+          f"in {steps} steps)", flush=True)
+    print(f"[train] step ms p50 {p50:.1f} p95 {p95:.1f} (steps 2-{steps}, "
+          f"each ending in a read-back of its metrics); "
+          f"{out['tokens_per_s']:.0f} training tokens/s; MFU "
+          f"{100 * out['mfu']:.2f}% (6 x {n_matmul / 1e9:.3f}B matmul "
+          f"params x {tokens} tokens / step / 989 TFLOP/s); wall "
+          f"{wall:.2f}s", flush=True)
+    print(f"[train] peak allocated {peak / 1e9:.2f} GB; stash model for "
+          f"(B, S, F) per layer: dense {fp['dense_total'] / 1e9:.2f} GB, "
+          f"DSG {fp['dsg_total'] / 1e9:.2f} GB (the port stores dense "
+          f"activations, as the reference does in mask mode)", flush=True)
+    def device(d):
+        if d is None:
+            return "device time not measured (no device events)"
+        top = [(k["name"][:40], round(k["ms"], 2)) for k in d["by_kernel"][:4]]
+        return (f"device busy {d['busy_ms']:.1f} ms, "
+                f"{100 * d['busy_share']:.1f}% of its window, top {top}")
+    print(f"[train] one more step, parts timed alone: loss + grads "
+          f"{br['loss_grad_ms']:.1f} ms ({device(br['loss_grad_device'])}); "
+          f"AdamW {br['adamw_ms']:.1f} ms ({device(br['adamw_device'])})",
+          flush=True)
+    print(f"[train] mean kept fraction by layer "
+          f"{[round(k, 4) for k in kept]}; FFN calls by mode {calls}; "
+          f"kernel launches {launches}; refreshed after steps {refreshed}; "
+          f"retries {len(monitor.failures)}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or len(hist) != steps:
+        fail(f"training losses are not all finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if monitor.failures:
+        fail(f"training retried: {monitor.failures}")
+    if refreshed != [4, 8, 12]:
+        fail(f"f(W) was refreshed after steps {refreshed}, not 4, 8, 12")
+    if calls != dict(dict.fromkeys(dsg_linear.FFN_MODES, 0),
+                     mask=2 * n * steps):
+        fail(f"the FFN did not take the masked DSG path in every layer of "
+             f"every step (forward and remat): {calls}")
+    # smoke width: the same 4 steps on the card and on the CPU
+    t0 = time.perf_counter()
+    card_losses, card_masks = smoke_training(dev)
+    cpu_losses, cpu_masks = smoke_training(torch.device("cpu"))
+    differ = sum(int((a != b).sum()) for a, b in zip(card_masks, cpu_masks))
+    out["smoke"] = {"card_losses": card_losses, "cpu_losses": cpu_losses,
+                    "masks": len(card_masks), "groups_differ": differ}
+    print(f"[train] smoke width, 4 steps: losses on the card {card_losses}, "
+          f"on the CPU {cpu_losses}; {len(card_masks)} masks, {differ} "
+          f"groups differ; {time.perf_counter() - t0:.2f}s", flush=True)
+    if len(card_losses) != 4 or len(card_masks) != len(cpu_masks) or differ \
+            or any(abs(a - b) > 1e-5 * abs(b)
+                   for a, b in zip(card_losses, cpu_losses)):
+        fail("smoke-width training on the card differs from the CPU")
+    return out
 
 
 def serve_line(tag, stats) -> str:
@@ -1696,6 +1980,17 @@ def main() -> int:
         x_ffn, ffn.w_gate.data, ffn.w_up.data, ffn.w_down.data, ffn_mask,
         cfg.dsg.block)
     print(f"[phase 9] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 19. the training path at full width, on memory the serve phases gave
+    # back: their model, captured operands and graph pools go first
+    del model, dsg, ffn, captures, refresh, cases, x_ffn, qkv_a, q_long, \
+        k_b, v_b, tokens, ffn_mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = train_phase(dev, wrappers)
+    print("[train] stats " + json.dumps(trained), flush=True)
+    print(f"[phase 19] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,23 @@
 """Dimension-reduction search (DRS): score neuron groups from virtual
 pre-activations f(X) @ f(W) and keep the top (1 - gamma) fraction.
 
-Selection is per neuron group of `block` consecutive outputs; a group's
-score is sum(relu(v)) over the group.  Threshold modes:
+Selection is per neuron group of `block` consecutive outputs.  Scores:
+  * "relu_sum"   — sum(relu(v)) over the group (the default);
+  * "abs_sum"    — sum(|v|);
+  * "signed_sum" — sum(v);
+  * "max"        — the group's largest v.
+Threshold modes:
   * "topk"   — per-row k-th largest score, every group at or above it kept.
   * "shared" — the paper's inter-sample sharing: row 0 of the flattened
                batch sets the threshold for every row.
-The "ema" mode and the other score kinds are not ported yet (ROADMAP.md).
+  * "ema"    — a threshold carried across steps: the mask uses the carried
+               value (this batch's mean top-k threshold when none is
+               carried) and the decayed average toward this batch's
+               threshold is returned for the next step (`select_mask_ema`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,13 +43,18 @@ def keep_groups(n_out: int, cfg: DRSConfig) -> int:
 
 
 def group_scores(virtual: torch.Tensor, cfg: DRSConfig) -> torch.Tensor:
-    """(..., N) virtual pre-activations -> (..., G) relu-sum group scores."""
-    if cfg.score != "relu_sum":
-        raise ValueError(f"score {cfg.score!r} is not ported (relu_sum only; "
-                         f"see ROADMAP.md)")
+    """(..., N) virtual pre-activations -> (..., G) group scores."""
     g = virtual.shape[-1] // cfg.block
     v = virtual.reshape(virtual.shape[:-1] + (g, cfg.block))
-    return torch.relu(v).sum(dim=-1)
+    if cfg.score == "relu_sum":
+        return torch.relu(v).sum(dim=-1)
+    if cfg.score == "abs_sum":
+        return v.abs().sum(dim=-1)
+    if cfg.score == "signed_sum":
+        return v.sum(dim=-1)
+    if cfg.score == "max":
+        return v.amax(dim=-1)
+    raise ValueError(f"unknown score {cfg.score}")
 
 
 def _topk_threshold(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -50,26 +62,70 @@ def _topk_threshold(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(scores, k, dim=-1).values[..., k - 1:k]
 
 
-def select_mask(scores: torch.Tensor, n_out: int,
-                cfg: DRSConfig) -> torch.Tensor:
-    """Group scores (..., G) -> float32 {0,1} mask (..., G).  Ties at the
-    threshold are all kept (`>=`), so a row may keep more than k groups."""
+def select_mask_ema(scores: torch.Tensor, n_out: int, cfg: DRSConfig,
+                    ema_threshold=None):
+    """Group scores (..., G) -> (float32 {0,1} mask (..., G), new EMA).
+
+    Ties at the threshold are all kept (`>=`), so a row may keep more than
+    k groups.  The new EMA is a 0-dim f32 tensor in "ema" mode and
+    `ema_threshold` passed through otherwise (also when every group is
+    kept, as the reference does)."""
     k = keep_groups(n_out, cfg)
     g = scores.shape[-1]
     if k >= g:
-        return torch.ones_like(scores, dtype=torch.float32)
+        return torch.ones_like(scores, dtype=torch.float32), ema_threshold
     if cfg.threshold_mode == "topk":
         thr = _topk_threshold(scores, k)
-    elif cfg.threshold_mode == "shared":
+        return (scores >= thr).to(torch.float32), ema_threshold
+    if cfg.threshold_mode == "shared":
         thr = _topk_threshold(scores.reshape(-1, g)[0:1], k).reshape(
             (1,) * (scores.ndim - 1) + (1,))
-    else:
-        raise ValueError(f"threshold_mode {cfg.threshold_mode!r} is not "
-                         f"ported (topk, shared; see ROADMAP.md)")
-    return (scores >= thr).to(torch.float32)
+        return (scores >= thr).to(torch.float32), ema_threshold
+    if cfg.threshold_mode == "ema":
+        thr_now = _topk_threshold(scores, k).to(torch.float32).mean()
+        if ema_threshold is None:
+            ema = thr_now
+        else:
+            ema = torch.as_tensor(ema_threshold, dtype=torch.float32,
+                                  device=scores.device)
+        mask = (scores >= ema).to(torch.float32)
+        return mask, cfg.ema_decay * ema + (1 - cfg.ema_decay) * thr_now
+    raise ValueError(f"unknown threshold_mode {cfg.threshold_mode}")
+
+
+def select_mask(scores: torch.Tensor, n_out: int,
+                cfg: DRSConfig) -> torch.Tensor:
+    """The mask of `select_mask_ema` with no carried threshold ("ema"
+    mode then thresholds at this batch's mean top-k threshold)."""
+    return select_mask_ema(scores, n_out, cfg)[0]
 
 
 def drs_mask(fx: torch.Tensor, fw: torch.Tensor,
              cfg: DRSConfig) -> torch.Tensor:
     """f(X) (..., k) x f(W) (k, N) -> group mask (..., G)."""
     return select_mask(group_scores(fx @ fw, cfg), fw.shape[-1], cfg)
+
+
+def expand_mask(mask: torch.Tensor, block: int) -> torch.Tensor:
+    """Group mask (..., G) -> neuron mask (..., G*block)."""
+    return torch.repeat_interleave(mask, block, dim=-1)
+
+
+def oracle_mask(pre_act: torch.Tensor, n_out: int,
+                cfg: DRSConfig) -> torch.Tensor:
+    """The paper's oracle baseline (Fig. 5(c)): per-row top-k on the true
+    pre-activations, which needs the full products DRS avoids."""
+    return select_mask(group_scores(pre_act, cfg), n_out,
+                       cfg._replace(threshold_mode="topk"))
+
+
+def random_mask(generator: torch.Generator, batch_shape: tuple, n_out: int,
+                cfg: DRSConfig, device: Optional[torch.device] = None
+                ) -> torch.Tensor:
+    """The paper's random baseline (Fig. 5(c)): k uniformly random groups
+    per row, drawn from `generator` (created on `device`)."""
+    g = num_groups(n_out, cfg.block)
+    k = keep_groups(n_out, cfg)
+    scores = torch.rand(tuple(batch_shape) + (g,), generator=generator,
+                        device=device)
+    return (scores >= _topk_threshold(scores, k)).to(torch.float32)

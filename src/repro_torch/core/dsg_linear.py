@@ -6,8 +6,14 @@ DSG group dim is F split into G = F/block groups.  Paths:
   * `swiglu_dense`      — no DSG.
   * `swiglu_dsg_mask`   — paper-faithful per-token mask: DRS selects groups
                           online, the full products run, the mask zeroes the
-                          dropped groups (prefill, and decode without the
-                          serving runtime).
+                          dropped groups (training, prefill, and decode
+                          without the serving runtime).  The mask is
+                          detached, so the backward error through a dropped
+                          group is exactly zero (the paper's Algorithm 1).
+  * `swiglu_dsg_gather` — one selection shared by every token of the batch
+                          (batch-summed group scores, per-chunk top-k); only
+                          the kept groups' weight blocks are gathered and
+                          multiplied (`mode="gather_shared"`).
   * `swiglu_csr_masked` — the masked-dense reference for per-lane
                           group-CSR patterns.
   * `swiglu_csr`        — serving decode over per-lane group-CSR patterns
@@ -31,10 +37,10 @@ class DSGConfig(NamedTuple):
     gamma: float = 0.5            # fraction of neuron groups dropped
     eps: float = 0.5              # JLL epsilon -> projection dim k
     block: int = 128              # neuron-group width
-    threshold_mode: str = "topk"  # "topk" | "shared"
+    threshold_mode: str = "topk"  # "topk" | "shared" | "ema"
     score: str = "relu_sum"
-    mode: str = "mask"            # only "mask" is ported
-    n_chunks: int = 1
+    mode: str = "mask"            # "mask" | "gather_shared"
+    n_chunks: int = 1             # balanced per-chunk selection
     refresh_every: int = 50
 
     def drs_cfg(self) -> drs.DRSConfig:
@@ -68,11 +74,57 @@ def init_swiglu(d: int, f: int, *, generator: torch.Generator,
                   normal((f, d), 1.0 / math.sqrt(f)))
 
 
+def search_weight(p: SwiGLU) -> torch.Tensor:
+    """The weight DRS estimates against: the gate path, whose SiLU
+    argument decides the activation's magnitude."""
+    return p.w_gate
+
+
+def init_dsg_state(d: int, f: int, cfg: DSGConfig, w_search: torch.Tensor,
+                   *, generator: torch.Generator,
+                   dtype: torch.dtype = torch.float32, device=None) -> dict:
+    """DSG buffers of one layer: the projection R (k, d) and the projected
+    search weights f(W) = R @ w_search (k, f), refreshed by the training
+    loop every cfg.refresh_every steps (`refresh_fw`)."""
+    r = projection.make_projection(proj_dim(d, f, cfg), d,
+                                   generator=generator, dtype=dtype,
+                                   device=device)
+    with torch.no_grad():
+        return {"r": r, "fw": projection.project(r, w_search.to(dtype))}
+
+
+def refresh_fw(state: dict, w_search: torch.Tensor) -> dict:
+    with torch.no_grad():
+        return {"r": state["r"], "fw": projection.project(
+            state["r"], w_search.to(state["r"].dtype))}
+
+
 def drs_group_mask(x: torch.Tensor, state: dict,
                    cfg: DSGConfig) -> torch.Tensor:
     """Per-token group mask (..., G) from the dimension-reduction search."""
     fx = projection.project_rows(state["r"], x)
     return masks.freeze(drs.drs_mask(fx, state["fw"], cfg.drs_cfg()))
+
+
+def shared_topk_indices(x: torch.Tensor, state: dict, cfg: DSGConfig,
+                        f: int) -> torch.Tensor:
+    """Batch-shared selection ("gather_shared"): group scores summed over
+    every token row, then a top-k in each of `n_chunks` contiguous chunks
+    of the groups (one chunk when they do not divide G).  Returns the kept
+    group indices (K',), ascending."""
+    fx = projection.project_rows(state["r"], x)
+    scores = drs.group_scores(fx @ state["fw"], cfg.drs_cfg())
+    scores = scores.reshape(-1, scores.shape[-1]).sum(dim=0)     # (G,)
+    g = scores.shape[0]
+    keep_total = drs.keep_groups(f, cfg.drs_cfg())
+    n_chunks = max(1, cfg.n_chunks)
+    if g % n_chunks != 0:
+        n_chunks = 1
+    per_chunk = max(1, keep_total // n_chunks)
+    local = torch.topk(scores.reshape(n_chunks, g // n_chunks), per_chunk,
+                       dim=-1).indices                            # (C, kc)
+    base = (torch.arange(n_chunks, device=x.device) * (g // n_chunks))
+    return torch.sort((local + base[:, None]).reshape(-1)).values.detach()
 
 
 def _gate_up(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
@@ -92,14 +144,45 @@ def swiglu_dsg_mask(p: SwiGLU, x: torch.Tensor, state: dict,
     return h @ p.w_down
 
 
+def swiglu_dsg_gather(p: SwiGLU, x: torch.Tensor, state: dict,
+                      cfg: DSGConfig) -> torch.Tensor:
+    """Batch-shared gathered SwiGLU: only the kept groups' columns of
+    w_gate/w_up and rows of w_down are multiplied, (1 - gamma) of the
+    dense products."""
+    d, f = p.w_gate.shape
+    b = cfg.block
+    idx = shared_topk_indices(x, state, cfg, f)                  # (K',)
+    wg = p.w_gate.reshape(d, f // b, b).transpose(0, 1)[idx]     # (K', d, b)
+    wu = p.w_up.reshape(d, f // b, b).transpose(0, 1)[idx]
+    wd = p.w_down.reshape(f // b, b, d)[idx]                     # (K', b, d)
+    h = (F.silu(torch.einsum("...d,kdb->...kb", x, wg))
+         * torch.einsum("...d,kdb->...kb", x, wu))
+    return torch.einsum("...kb,kbd->...d", h, wd)
+
+
+FFN_MODES = ("dense", "mask", "gather_shared")
+_calls = dict.fromkeys(FFN_MODES, 0)
+
+
 def swiglu_ffn(p: SwiGLU, x: torch.Tensor, state: Optional[dict],
                cfg: DSGConfig) -> torch.Tensor:
-    if not cfg.enabled or state is None:
+    """The FFN by DSG mode.  `swiglu_ffn.calls` counts the calls of each
+    mode (a layer recomputed under remat counts again); set the counts to
+    0 with `swiglu_ffn.calls.update(dict.fromkeys(FFN_MODES, 0))`.  The
+    count stays with this function when a caller wraps the module's
+    name."""
+    mode = "dense" if not cfg.enabled or state is None else cfg.mode
+    if mode not in FFN_MODES:
+        raise ValueError(f"unknown DSG mode {cfg.mode!r}")
+    _calls[mode] += 1
+    if mode == "dense":
         return swiglu_dense(p, x)
-    if cfg.mode != "mask":
-        raise ValueError(f"DSG mode {cfg.mode!r} is not ported (mask only; "
-                         f"see ROADMAP.md)")
+    if mode == "gather_shared":
+        return swiglu_dsg_gather(p, x, state, cfg)
     return swiglu_dsg_mask(p, x, state, cfg)
+
+
+swiglu_ffn.calls = _calls
 
 
 def swiglu_csr_masked(p: SwiGLU, x: torch.Tensor, idx: torch.Tensor,

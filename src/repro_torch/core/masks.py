@@ -16,3 +16,18 @@ def apply_expanded(x: torch.Tensor, group_mask: torch.Tensor,
     g = group_mask.shape[-1]
     xs = x.reshape(x.shape[:-1] + (g, block))
     return (xs * group_mask[..., None].to(x.dtype)).reshape(x.shape)
+
+
+def density(mask: torch.Tensor) -> torch.Tensor:
+    """Fraction of ones."""
+    return mask.to(torch.float32).mean()
+
+
+def mask_overhead_bytes(shape: tuple, block: int) -> int:
+    """Bitmask storage cost for the stash (the paper puts it under 2% of
+    memory): one bit per neuron group per row, byte-rounded."""
+    rows = 1
+    for s in shape[:-1]:
+        rows *= s
+    groups = shape[-1] // block
+    return rows * ((groups + 7) // 8)

@@ -42,6 +42,24 @@ def make_projection(k: int, d: int, *, generator: torch.Generator,
     return (r / math.sqrt(k)).to(dtype)
 
 
+def project(r: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """f(Z) = R @ Z for Z of shape (d, ...): projects the leading dim.
+    For activations laid out (..., d) use `project_rows`."""
+    return torch.tensordot(r, z, dims=([1], [0]))
+
+
 def project_rows(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """f(X) over the trailing feature dim: (..., d) -> (..., k)."""
     return x @ r.t()
+
+
+def maybe_refresh_fw(step: int, r: torch.Tensor, w: torch.Tensor,
+                     fw: torch.Tensor, refresh_every: int = 50
+                     ) -> torch.Tensor:
+    """The paper's amortisation (Sec. 3.1): f(W) is recomputed from the
+    current weights only when `step` is a multiple of `refresh_every`;
+    between refreshes the stale f(W) serves the search.  `step` is a
+    Python int, since nothing here is traced."""
+    if step % refresh_every == 0:
+        return project(r, w).to(fw.dtype)
+    return fw

@@ -37,3 +37,34 @@ def csr_to_dense(idx: torch.Tensor, counts: torch.Tensor,
     dense.scatter_add_(-1, torch.where(valid, idx, 0).long(),
                        valid.to(torch.float32))
     return dense.clamp_(max=1.0)
+
+
+def dense_to_csr(mask: torch.Tensor, bound: int):
+    """Dense group mask (..., G) -> (idx (..., bound) int32, counts (...,)
+    int32).  Sorting the key `where(active, g, G + g)` lists the active
+    groups first, each side ascending, so the leading `bound` entries are
+    the active list when `bound` covers the row's count (longer rows are
+    truncated).  Padding is zeroed, so a row's form is canonical."""
+    g = mask.shape[-1]
+    active = mask > 0
+    ar = torch.arange(g, device=mask.device)
+    key = torch.where(active, ar, g + ar)
+    order = torch.argsort(key, dim=-1)[..., :bound].to(torch.int32)
+    counts = active.sum(dim=-1).clamp(max=bound).to(torch.int32)
+    valid = torch.arange(bound, device=mask.device) < counts[..., None]
+    return torch.where(valid, order, 0), counts
+
+
+def csr_rows(shape: tuple) -> int:
+    rows = 1
+    for s in shape:
+        rows *= s
+    return rows
+
+
+def csr_overhead_bytes(batch_shape: tuple, bound: int, idx_bytes: int = 4,
+                       count_bytes: int = 4) -> int:
+    """Storage cost of the CSR pattern state: `bound` int32 indices and one
+    int32 count per row (compare `masks.mask_overhead_bytes`, one bit per
+    group per row)."""
+    return csr_rows(batch_shape) * (bound * idx_bytes + count_bytes)

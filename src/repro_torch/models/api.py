@@ -2,6 +2,8 @@
 
   init_model(cfg, generator=, device=)          -> Transformer
   init_dsg(model, cfg, generator=, device=)     -> DSG state or None
+  refresh_dsg(dsg, model, cfg)                  -> DSG state, f(W) anew
+  train_loss(model, dsg, cfg, batch)            -> scalar loss
   make_cache(cfg, batch, max_seq, device=)      -> dense {'k', 'v'} cache
   prefill(model, dsg, cfg, inputs, cache)       -> (last_logits, cache)
   decode_step(model, dsg, cfg, token, cache, pos) -> (logits, cache)
@@ -41,6 +43,23 @@ def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
              device="cuda") -> Optional[dict]:
     return transformer.init_dsg(model, cfg, generator=generator,
                                 device=require_device(device))
+
+
+def _require_dense(cfg: ModelConfig, verb: str) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{verb} for the {cfg.family!r} family is not ported (the port "
+            f"runs the dense family; ROADMAP.md queue 1 item 8)")
+
+
+def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
+    _require_dense(cfg, "refresh_dsg")
+    return transformer.refresh_dsg(dsg, model, cfg)
+
+
+def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    _require_dense(cfg, "train_loss")
+    return transformer.train_loss(model, dsg, cfg, batch)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,

@@ -3,7 +3,15 @@ blocks run by a Python loop over layers, where the reference scans stacked
 layer leaves with lax.scan.
 
 The DSG state is a dict: one shared projection R (k, d) and the per-layer
-projected search weights fw (L, k, F).
+projected search weights fw (L, k, F), recomputed from the current gate
+weights by `refresh_dsg` (the training loop's f(W) refresh).
+
+Weights are built with requires_grad off; the trainer turns it on for the
+model it owns (`set_trainable`).  The serving entry points (`prefill`,
+`decode_step`) run under torch.no_grad(), so a trained model serves, and a
+captured CUDA graph records, no autograd.  Training calls `forward` with
+no cache; with cfg.remat each layer is then recomputed in the backward
+(torch.utils.checkpoint), as the reference's jax.checkpoint does.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dsg_linear as dl
@@ -43,6 +52,13 @@ class Transformer(nn.Module):
         self.ln_final = ln_final
         self.lm_head = (nn.Parameter(lm_head, requires_grad=False)
                         if lm_head is not None else None)         # (d, V)
+
+
+def set_trainable(model: Transformer, flag: bool = True) -> Transformer:
+    """Turn requires_grad on (or off) for every parameter of `model`."""
+    for p in model.parameters():
+        p.requires_grad_(flag)
+    return model
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -84,7 +100,19 @@ def init_dsg(model: Transformer, cfg: ModelConfig, *,
     k = dl.proj_dim(cfg.d_model, cfg.d_ff, cfg.dsg)
     r = projection.make_projection(k, cfg.d_model, generator=generator,
                                    dtype=torch_dtype(cfg), device=device)
-    fw = torch.stack([r @ blk.ffn.w_gate for blk in model.layers])
+    return refresh_dsg({"r": r}, model, cfg)
+
+
+def refresh_dsg(dsg: Optional[dict], model: Transformer,
+                cfg: ModelConfig) -> Optional[dict]:
+    """f(W) recomputed from the current gate weights (the paper refreshes
+    every 50 steps); R is kept.  Not differentiated."""
+    if dsg is None:
+        return None
+    r = dsg["r"]
+    with torch.no_grad():
+        fw = torch.stack([r @ dl.search_weight(blk.ffn)
+                          for blk in model.layers])
     return {"r": r, "fw": fw}
 
 
@@ -154,14 +182,22 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
     else:
         q_pos = pos0 + steps
     r = dsg["r"] if dsg is not None else None
+    # per-layer rematerialisation when a backward will follow: each block
+    # keeps only its input and runs again in the backward.  The block
+    # draws nothing at random, so the recomputed DRS mask is the forward's
+    remat = (cfg.remat and cache is None and torch.is_grad_enabled()
+             and any(p.requires_grad for p in model.parameters()))
     all_scores = []
     for l, blk in enumerate(model.layers):
         csr_l = ((ffn_csr["idx"][l], ffn_csr["counts"][l])
                  if ffn_csr is not None else None)
-        x, scores = _block(blk, x, cfg, q_pos, layer_caches[l], pos0,
-                           page_table, live_pages, r,
-                           dsg["fw"][l] if dsg is not None else None, csr_l,
-                           collect_drs_scores)
+        args = (blk, x, cfg, q_pos, layer_caches[l], pos0, page_table,
+                live_pages, r, dsg["fw"][l] if dsg is not None else None,
+                csr_l, collect_drs_scores)
+        if remat:
+            x, scores = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x, scores = _block(*args)
         all_scores.append(scores)
     x = model.ln_final(x)
     if last_only:
@@ -188,6 +224,28 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32 (logsumexp minus the gold
+    logit); `mask` weights the tokens."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce.mean()
+
+
+def train_loss(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
+               batch: dict) -> torch.Tensor:
+    """Next-token loss of batch {'tokens', 'labels'} (B, S), plus 0.01 x the
+    auxiliary loss, which the dense family does not have."""
+    logits, _ = forward(model, dsg, cfg, batch["tokens"])
+    aux = 0.0
+    return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+
+
+@torch.no_grad()
 def prefill(model, dsg, cfg: ModelConfig, tokens, cache,
             collect_drs_scores: bool = False):
     """Prefill `cache` with the prompt; returns (last_logits (B, V), cache)
@@ -201,6 +259,7 @@ def prefill(model, dsg, cfg: ModelConfig, tokens, cache,
     return logits[:, -1], cache
 
 
+@torch.no_grad()
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
                 live_pages=None, ffn_csr=None,
                 collect_drs_scores: bool = False):

@@ -978,3 +978,65 @@ def test_graph_capture_failure_raises_on_card(cuda):
     with pytest.raises(RuntimeError):
         cache.replay("sync", fn)
     assert "sync" not in cache.graphs
+
+
+def _smoke_training(device, steps=4):
+    """The smoke model (f32) trained `steps` steps from one CPU
+    initialisation: its losses and the forward passes' DRS masks."""
+    from repro_torch.core import dsg_linear
+    from repro_torch.launch import train
+    cfg = configs.get_smoke_config("internlm2-1.8b")
+    cfg = cfg.replace(dsg=cfg.dsg._replace(refresh_every=2))
+    gen = torch.Generator().manual_seed(0)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = {k: v.to(device) for k, v in api.init_dsg(
+        model, cfg, generator=gen, device="cpu").items()}
+    model = model.to(device)
+    masks, orig = [], dsg_linear.drs_group_mask
+
+    def rec(x, state, c):
+        m = orig(x, state, c)
+        masks.append(m.cpu())
+        return m
+    dsg_linear.drs_group_mask = rec
+    try:
+        _, hist, monitor = train.train(cfg, steps=steps, global_batch=4,
+                                       seq_len=32, device=device,
+                                       init=(model, dsg))
+    finally:
+        dsg_linear.drs_group_mask = orig
+    assert monitor.failures == []
+    n = cfg.n_layers
+    return ([h["loss"] for h in hist],
+            [m for i, m in enumerate(masks) if i % (2 * n) < n])
+
+
+def test_training_steps_card_match_cpu_on_card(cuda):
+    """Four training steps at smoke width in f32 (TF32 off): the card's
+    losses equal the CPU's to rtol 1e-5 and every DRS mask is the same."""
+    card_losses, card_masks = _smoke_training(cuda)
+    cpu_losses, cpu_masks = _smoke_training(torch.device("cpu"))
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
+    assert len(card_masks) == len(cpu_masks) == 8
+    for a, b in zip(card_masks, cpu_masks):
+        assert torch.equal(a, b)
+
+
+def test_trained_bf16_model_keeps_master_weights_on_card(cuda):
+    """A bf16 model trains with f32 master weights on the card: the
+    parameters stay bf16 and equal their masters rounded, and the serving
+    entry points record no autograd on the trained model."""
+    from repro_torch.launch import train
+    cfg = configs.get_smoke_config("internlm2-1.8b").replace(
+        dtype="bfloat16")
+    state, hist, _ = train.train(cfg, steps=3, global_batch=2, seq_len=16,
+                                 device=cuda)
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    for n, p in state["model"].named_parameters():
+        assert p.dtype == torch.bfloat16 and p.requires_grad
+        assert torch.equal(p.detach(), state["opt"]["master"][n].bfloat16())
+    cache = api.make_cache(cfg, 1, 16, device=cuda)
+    logits, cache = api.prefill(state["model"], state["dsg"], cfg,
+                                {"tokens": torch.zeros(1, 4, dtype=torch.long,
+                                                       device=cuda)}, cache)
+    assert not logits.requires_grad and not cache["k"].requires_grad
