@@ -146,11 +146,42 @@ result line):
             the run (none: no kernel lies on the training path).  Then the
             smoke model's 4 training steps on the card against the CPU
             (f32, TF32 off): losses to rtol 1e-5 and every DRS mask equal.
-Phases 15-18 each count the kernels' launches from 0, by the graph cache
-for the chunked runs (phase 10's accounting) and by the wrappers' counters
-for the eager one; each must have launched every serve-path kernel.
-Phases 10-18 run after phase 5, in the order 10, 15-18, 11-14; each prints
-its seconds.
+20. router — phase 3's model behind `serving.router.Router`: 2 replicas x
+            4 slots sharing the model's tensors, DSG serving on (gamma 0.5,
+            refresh 8), paged (page 16), max_seq 512, bucket 256, chunk 8,
+            16 `skewed_requests` (every other one heavy: prompts 96-160,
+            40-56 new tokens; light 8-24, 2-4 new), fault tolerance on
+            (it acts only when a replica fails), every replica warmed by
+            `warmup_router`.  (a) round_robin and least_queue under the
+            sequential executor; (b) least_queue under the threaded
+            executor (a worker thread and a stream per replica), once plain
+            and once under torch.profiler for the device's busy share;
+            (c) least_queue with a kill on replica 1 at step 16 and a
+            poison on replica 0 at step 32, sequential and threaded; each
+            run: every request ok, every uid's stream equal to that
+            request's stream from one engine (16 of 16), no graph captured
+            during the run, every serve-path kernel launched (the wrappers'
+            eager launches plus the graph caches' captured x replays);
+            failover also needs each fault fired once, a retry and both
+            replicas healthy at the end.  (d) the sharded executor with
+            DSG on and DSG serving off, the DRS threshold per row (top-k:
+            the config's shared threshold, row 0's, couples a lane to its
+            co-resident lanes by design), chunk 1 and 8: streams equal one
+            such engine's, one group-graph replay a tick, and paged
+            decode's replayed launches 24 x chunk x 2 x
+            replays, all split; a sharded router over DSG-serving engines
+            must raise.  (e) the per-lane "ema" threshold on one engine at
+            chunk 8, not warmed (the run captures the keys it meets):
+            every request ok; prints the modeled FFN reduction beside
+            topk's.  Prints the modeled and measured makespans,
+            parallel tok/s, dispatches of heavy requests per replica,
+            per-replica busy seconds, retries and health.
+Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
+caches for the chunked runs (phase 10's accounting) and by the wrappers'
+counters for the eager one; each must have launched every serve-path
+kernel (phase 20's sharded runs, with DSG serving off, paged decode).
+Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
+each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -172,10 +203,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 CAPTURE_STEP = 12                  # decode step whose layer-0 call is kept
 TIMING_REPS = 30
-WARM_REPS = 10                     # profiled calls before the timed ones:
+WARM_REPS = 30                     # profiled calls before the timed ones:
                                    # the profiler can drop the events of
-                                   # the first calls after it starts (7
-                                   # of 35 on an H100 80GB HBM3)
+                                   # the first calls after it starts (up
+                                   # to 16 of 50 on an H100 80GB HBM3)
 CALL_GAP_NS = 3_000_000            # idle device time that ends a call
 PROFILE_TRIES = 3                  # traces device_ms takes to find a clean one
 # (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
@@ -977,6 +1008,281 @@ def fixed_lane_streams(cfg, model, dsg, eng_kw, chunk):
     if stats["ok_requests"] != 4 or eng.admissions != 4:
         fail(f"the fixed-lane run at chunk {chunk} did not finish: {stats}")
     return {u: list(r.output) for u, r in eng.done.items()}
+
+
+# -- phase 20: the router ---------------------------------------------------
+
+def one_engine(cfg, model, dsg, eng_kw, requests, warm=True):
+    """One engine serving `requests`, warmed first unless `warm` is false
+    (then the run captures each graph key it meets): (streams, engine,
+    stats)."""
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import run_engine, warmup_engine
+    eng = ServingEngine(cfg, model, dsg, **eng_kw)
+    if warm:
+        warmup_engine(eng, cfg.vocab)
+    stats = run_engine(eng, requests)
+    if stats["ok_requests"] != len(requests):
+        fail(f"one engine did not finish every request ok: {stats}")
+    return {u: list(r.output) for u, r in eng.done.items()}, eng, stats
+
+
+def router_run(router, wrappers, requests, faults=None, profile=False):
+    """Serve `requests` through a warmed router from a clean slate (the
+    engines' results, counters and graph replays, the router's counters
+    and health), with the kernels' counters set to 0 just before and read
+    just after.  A kernel's launches are the wrappers' eager ones plus the
+    graph caches' captured launches x replays (each replica's chunk graphs
+    and the sharded executor's group graphs); a capture during the run
+    fails the phase.  Returns (streams, stats, launches by kernel and by
+    path, the injector, the profile's busy summary or None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.runtime.fault_tolerance import ServingFaultInjector
+    from repro_torch.serving.workload import router_stats
+    for e in router.engines:
+        e.done.clear()
+        e.steps = e.admissions = e.refresh_steps = 0
+        e.decode_seconds, e.decode_tokens = 0.0, 0
+        e.fault_injector = None
+        if e.graphs is not None:
+            e.graphs.replays.clear()
+    caches = [e.graphs for e in router.engines if e.graphs is not None]
+    group = getattr(router.executor, "graphs", None)
+    if group is not None:
+        group.replays.clear()
+        caches.append(group)
+    keys = [set(c.graphs) for c in caches]
+    router.reset_counters()
+    router.reset_health()
+    injector = None
+    if faults:
+        injector = ServingFaultInjector(faults)
+        injector.attach(router.engines)
+    for w in wrappers.values():
+        for name in [n for n in vars(w) if n.startswith("launches")]:
+            setattr(w, name, 0)
+    for r in requests:
+        router.submit(r)
+    prof = None
+    t0 = time.perf_counter()
+    if profile:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            done = router.run()
+            torch.cuda.synchronize()
+    else:
+        done = router.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    router.close()
+    if keys != [set(c.graphs) for c in caches]:
+        fail(f"a graph was captured during the {router.executor.name} "
+             f"router's run")
+    launches = {}
+    for n, w in wrappers.items():
+        launches[n] = {name: getattr(w, name) + sum(c.launches(w, name)
+                                                    for c in caches)
+                       for name in vars(w) if name.startswith("launches")}
+    stats = router_stats(router, done, wall, injector)
+    streams = {u: list(r.output) for u, r in done.items()}
+    return streams, stats, launches, injector, (busy(prof) if profile
+                                                else None)
+
+
+def router_phase(cfg, model, dsg, wrappers) -> dict:
+    """Phase 20: the router over 2 replicas x 4 slots at full width, DSG
+    serving on, paged, chunk 8, on 16 skewed requests (every other one
+    heavy: prompts 96-160, 40-56 new tokens; light: 8-24, 2-4 new).  See
+    the module docstring."""
+    import torch
+    from repro_torch.runtime.fault_tolerance import ReplicaFault
+    from repro_torch.serving.dsg_runtime import DSGServingConfig
+    from repro_torch.serving.router import Router, get_policy
+    from repro_torch.serving.workload import skewed_requests, warmup_router
+    kw = dict(n_slots=4, max_seq=512, prompt_bucket=256,
+              cache_backend="paged", page_size=16, decode_chunk=8,
+              dsg_serving=DSGServingConfig(refresh_interval=8))
+
+    def traffic():
+        return skewed_requests(cfg.vocab, 16, period=2, seed=SEED)
+    heavy = {r.uid for r in traffic() if r.uid % 2 == 0}
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def show(line):
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    want, eng1, st1 = one_engine(cfg, model, dsg, kw, traffic())
+    topk_flops = eng1.dsg_rt.flop_stats()
+    out["one_engine"] = {"tokens": st1["tokens"], "wall_s": st1["wall_s"]}
+    del eng1
+
+    def check(tag, streams, stats, launches, need, ref=want):
+        same = sum(streams.get(u) == ref[u] for u in ref)
+        ok = stats["ok_requests"]
+        per = [sum(1 for u, r in stats["dispatch_log"] if r == i and u in
+                   heavy) for i in range(2)] if "dispatch_log" in stats \
+            else None
+        total = {n: launches[n]["launches"] for n in launches}
+        show(f"[router {tag}] {ok} of 16 ok, {same} of 16 streams equal one "
+             f"engine's; {stats['tokens']} tokens; "
+             f"{'measured' if stats['makespan_measured'] else 'modeled'} "
+             f"makespan {stats['makespan_s']:.3f} s = "
+             f"{stats['parallel_tok_per_s']:.2f} tok/s (wall "
+             f"{stats['wall_s']:.3f} s); heavy dispatches per replica {per}; "
+             f"busy s {[round(p['busy_s'], 4) for p in stats['per_replica']]}"
+             f"; launches {total}")
+        if ok != 16 or same != 16:
+            fail(f"router {tag}: {ok} of 16 ok and {same} of 16 streams "
+                 f"equal one engine's: a replica changed a lane's stream")
+        for n in need:
+            if not total[n]:
+                fail(f"router {tag}: {n} launched no time")
+        return total
+
+    def log_of(router, stats):
+        stats["dispatch_log"] = list(router.dispatch_log)
+        return stats
+
+    # (a) round_robin and least_queue, sequential executor
+    seq = Router(cfg, model, dsg, n_replicas=2, exec_mode="sequential",
+                 fault_tolerance=True, **kw)
+    warmup_router(seq, cfg.vocab)
+    graphs_per_replica = [len(e.graphs.graphs) for e in seq.engines]
+    phase = {}
+    for pol in ("round_robin", "least_queue"):
+        seq.policy = get_policy(pol)
+        streams, st, launches, _, _ = router_run(seq, wrappers, traffic())
+        st = log_of(seq, st)
+        phase[f"router_seq_{pol}"] = check(f"sequential {pol}", streams, st,
+                                           launches, wrappers)
+        out[f"sequential_{pol}"] = st
+    rr, lq = out["sequential_round_robin"], out["sequential_least_queue"]
+    show(f"[router] least_queue against round_robin (modeled): makespan "
+         f"{lq['makespan_s']:.3f} / {rr['makespan_s']:.3f} s = "
+         f"{rr['makespan_s'] / lq['makespan_s']:.3f}x; graphs per replica "
+         f"{graphs_per_replica}")
+
+    # (b) least_queue, threaded: a worker thread and a stream per replica
+    thr = Router(cfg, model, dsg, n_replicas=2, exec_mode="threaded",
+                 fault_tolerance=True, **kw)
+    warmup_router(thr, cfg.vocab)
+    streams, st, launches, _, _ = router_run(thr, wrappers, traffic())
+    phase["router_threaded"] = check("threaded least_queue", streams,
+                                     log_of(thr, st), launches, wrappers)
+    out["threaded_least_queue"] = st
+    _, stp, _, _, prof = router_run(thr, wrappers, traffic(), profile=True)
+    out["threaded_profiled"] = {"makespan_s": stp["makespan_s"],
+                                "busy": prof}
+    share = ("not measured" if prof is None else
+             f"{100 * prof['busy_share']:.1f}% ({prof['busy_ms']:.1f} ms "
+             f"of a {prof['window_ms']:.1f} ms window)")
+    show(f"[router] threaded measured makespan {st['makespan_s']:.3f} s "
+         f"against the sequential modeled {lq['makespan_s']:.3f} s and "
+         f"wall {lq['wall_s']:.3f} s; device busy over a profiled threaded "
+         f"drive {share}")
+
+    # (c) failover: a kill on replica 1 and a poison on replica 0
+    faults = [ReplicaFault(replica=1, step=16),
+              ReplicaFault(replica=0, step=32, kind="poison")]
+    for tag, router in (("sequential", seq), ("threaded", thr)):
+        router.policy = get_policy("least_queue")
+        streams, st, launches, inj, _ = router_run(router, wrappers,
+                                                   traffic(), faults=faults)
+        phase[f"router_failover_{tag}"] = check(
+            f"failover {tag}", streams, log_of(router, st), launches,
+            wrappers)
+        show(f"[router failover {tag}] faults fired {inj.log}; retries "
+             f"{st['retries']}; health {st['replica_health']}; restarts "
+             f"{[h.restarts for h in router.health]}")
+        if (len(inj.log) != 2 or st["retries"] < 1
+                or st["replica_health"] != ["healthy", "healthy"]):
+            fail(f"failover {tag}: every fault must fire once, a request "
+                 f"retry and each replica end healthy within its budget: "
+                 f"{inj.log}, {st}")
+        out[f"failover_{tag}"] = st
+    del seq, thr
+
+    # (d) sharded, DSG serving off: the decode step runs DSG's masked FFN
+    # with a per-row top-k threshold, so a lane's groups are its own (the
+    # config's shared threshold, row 0's, couples co-resident lanes)
+    cfg_rows = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+    kw_rows = dict(kw, dsg_serving=None)
+    want_rows, eng0, _ = one_engine(cfg_rows, model, dsg, kw_rows, traffic())
+    del eng0
+    for chunk in (1, 8):
+        sh = Router(cfg_rows, model, dsg, n_replicas=2, exec_mode="sharded",
+                    **dict(kw_rows, decode_chunk=chunk))
+        warmup_router(sh, cfg_rows.vocab)
+        ex = sh.executor
+        ticks = Counter()
+        group = ex._group
+
+        def counted(*a, group=group, ticks=ticks):
+            ticks["groups"] += 1
+            return group(*a)
+        ex._group = counted
+        streams, st, launches, _, _ = router_run(sh, wrappers, traffic())
+        replays = sum(ex.graphs.replays.values())
+        split = ex.graphs.launches(wrappers["paged_decode"],
+                                   "launches_split")
+        want_pd = cfg.n_layers * chunk * 2 * replays
+        phase[f"router_sharded_chunk{chunk}"] = check(
+            f"sharded chunk {chunk}", streams, log_of(sh, st), launches,
+            ("paged_decode",), ref=want_rows)
+        show(f"[router sharded chunk {chunk}] {ticks['groups']} group "
+             f"ticks, {replays} replays of {len(ex.graphs.graphs)} group "
+             f"graphs; paged_decode replayed {split} split launches "
+             f"(expected {cfg.n_layers} x {chunk} x 2 x {replays} = "
+             f"{want_pd}); group pool {ex.graphs.pool_bytes / 1e6:.1f} MB")
+        if replays != ticks["groups"] or split != want_pd or not replays \
+                or launches["paged_decode"]["launches"] != want_pd:
+            fail(f"sharded chunk {chunk}: one replay a tick and "
+                 f"{want_pd} split paged launches expected: {replays} "
+                 f"replays, {ticks['groups']} ticks, {split} split, "
+                 f"{launches['paged_decode']}")
+        out[f"sharded_chunk{chunk}"] = dict(st, ticks=ticks["groups"],
+                                            replays=replays)
+        del sh, ex
+    try:
+        Router(cfg, model, dsg, n_replicas=2, exec_mode="sharded", **kw)
+    except NotImplementedError as e:
+        show(f"[router] a sharded router over DSG-serving engines raises: "
+             f"{e}")
+    else:
+        fail("a sharded router over DSG-serving engines did not raise")
+
+    # (e) the per-lane EMA threshold on one engine at chunk 8
+    kw_ema = dict(kw, dsg_serving=DSGServingConfig(refresh_interval=8,
+                                                   threshold="ema"))
+    t_ema = time.perf_counter()
+    # not warmed: "ema" counts float over every CSR bucket, and warming
+    # them all captures 84 graphs; the run captures the keys it meets
+    _, eng_e, st_e = one_engine(cfg, model, dsg, kw_ema, traffic(),
+                                warm=False)
+    ema_flops = eng_e.dsg_rt.flop_stats()
+    show(f"[router ema] one engine, threshold ema, chunk 8: "
+         f"{st_e['ok_requests']} of 16 ok; modeled FFN reduction "
+         f"{ema_flops['flop_reduction_csr']:.3f}x (CSR), "
+         f"{ema_flops['flop_reduction_bound']:.3f}x (bound) against topk's "
+         f"{topk_flops['flop_reduction_csr']:.3f}x / "
+         f"{topk_flops['flop_reduction_bound']:.3f}x; "
+         f"{len(eng_e.graphs.graphs)} graphs captured in "
+         f"{eng_e.graphs.capture_seconds:.2f} s; "
+         f"{time.perf_counter() - t_ema:.2f}s")
+    out["ema"] = {"flop_stats": ema_flops, "topk_flop_stats": topk_flops,
+                  "stats": st_e, "graphs": len(eng_e.graphs.graphs)}
+    del eng_e
+    # the phase's peak: the weights once, and the routers' engines (their
+    # pools and graph pools) alive one router at a time
+    out["memory"] = {"max_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
+    show(f"[router] peak allocated over the phase "
+         f"{out['memory']['max_allocated_gb']:.3f} GB")
+    out["seconds"] = time.perf_counter() - t0
+    return out, phase
 
 
 def capture_layer0(cfg, model, dsg, tokens):
@@ -1866,6 +2172,15 @@ def main() -> int:
           f"dense chunk {chunk}), prefix sharing on (paged chunk 1 on "
           f"identical prompts, paged chunk {chunk} DSG on sampled on a "
           f"20-token prefix); {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 20. the router: 2 replicas behind one front end, each executor,
+    # failover, and the EMA threshold
+    t0 = time.perf_counter()
+    router_out, router_launches = router_phase(cfg, model, dsg, wrappers)
+    phase_launches.update(router_launches)
+    print("[router] stats " + json.dumps(router_out, default=str),
+          flush=True)
+    print(f"[phase 20] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 6. kernels against their plain versions
     t0 = time.perf_counter()

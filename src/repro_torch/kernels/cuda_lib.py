@@ -20,6 +20,7 @@ import shutil
 import signal
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -180,6 +181,19 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"{name} failed: CUDA error {err} "
                            f"({lib.repro_error_string(err).decode()})")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper, path: str) -> None:
+    """Add one to a wrapper's `launches` and its `launches_<path>`, under a
+    lock: replicas launch from worker threads, and `+=` on an attribute is
+    a read-modify-write that loses counts when two threads interleave."""
+    name = f"launches_{path}"
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def stream(device: torch.device) -> int:

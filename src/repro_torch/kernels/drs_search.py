@@ -184,7 +184,7 @@ def drs_project(x, r):
             cuda_lib.launch("repro_drs_project_gemv", x.data_ptr(),
                             r.data_ptr(), out.data_ptr(), m, k, d, p.splits,
                             cuda_lib.stream(dev))
-            drs_project.launches_gemv += 1
+            cuda_lib.count(drs_project, "gemv")
         elif p.path == "tc":
             ws = out                               # read only when split
             if p.splits > 1:
@@ -194,13 +194,12 @@ def drs_project(x, r):
                             r.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k,
                             d, p.chunks_per_split, p.splits,
                             cuda_lib.stream(dev))
-            drs_project.launches_tc += 1
+            cuda_lib.count(drs_project, "tc")
         else:
             cuda_lib.launch("repro_drs_project", code, x.data_ptr(),
                             r.data_ptr(), out.data_ptr(), m, k, d,
                             cuda_lib.stream(dev))
-            drs_project.launches_simt += 1
-    drs_project.launches += 1
+            cuda_lib.count(drs_project, "simt")
     return out
 
 
@@ -236,19 +235,18 @@ def drs_scores(fx, fw, *, block: int = 128):
             cuda_lib.launch("repro_drs_scores_gemv", fx.data_ptr(),
                             fw.data_ptr(), out.data_ptr(), m, k, f, block,
                             p.slices, cuda_lib.stream(dev))
-            drs_scores.launches_gemv += 1
+            cuda_lib.count(drs_scores, "gemv")
         elif p.path == "tc":
             cuda_lib.launch("repro_drs_scores_tc", fx.data_ptr(),
                             fw.data_ptr(), out.data_ptr(), m, k, f, block,
                             p.per, cuda_lib.stream(dev))
-            drs_scores.launches_tc += 1
+            cuda_lib.count(drs_scores, "tc")
         else:
             rows = p.smem // (4 * (k + block))
             cuda_lib.launch("repro_drs_scores", code, fx.data_ptr(),
                             fw.data_ptr(), out.data_ptr(), m, k, f, block,
                             rows, p.smem, cuda_lib.stream(dev))
-            drs_scores.launches_simt += 1
-    drs_scores.launches += 1
+            cuda_lib.count(drs_scores, "simt")
     return out
 
 

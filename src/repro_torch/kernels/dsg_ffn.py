@@ -234,7 +234,7 @@ def dsg_ffn_csr(x, wg, wu, wd, idx, counts, *, block: int = 128):
                 counts.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f, k,
                 block, p.lanes, p.cluster, p.slice, p.tile, p.splits,
                 cuda_lib.stream(dev))
-        dsg_ffn_csr.launches_union += 1
+        cuda_lib.count(dsg_ffn_csr, "union")
     else:
         if block > GATE_UP_THREADS or GATE_UP_THREADS % block:
             raise ValueError(f"{name}: block {block} must divide "
@@ -249,8 +249,7 @@ def dsg_ffn_csr(x, wg, wu, wd, idx, counts, *, block: int = 128):
                 wu.data_ptr(), wd.data_ptr(), idx.data_ptr(),
                 counts.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, f, k,
                 block, cuda_lib.stream(dev))
-        dsg_ffn_csr.launches_lanes += 1
-    dsg_ffn_csr.launches += 1
+        cuda_lib.count(dsg_ffn_csr, "lanes")
     return out
 
 
@@ -423,15 +422,14 @@ def dsg_ffn(x, wg, wu, wd, token_mask, *, block: int = 128, bm: int = 128,
                 wu.data_ptr(), wd.data_ptr(), mask.data_ptr(),
                 live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
                 block, p.rows, p.splits, cuda_lib.stream(dev))
-            dsg_ffn.launches_tc += 1
+            cuda_lib.count(dsg_ffn, "tc")
         else:
             cuda_lib.launch(
                 "repro_dsg_ffn_tile", code, x.data_ptr(), wg.data_ptr(),
                 wu.data_ptr(), wd.data_ptr(), mask.data_ptr(),
                 live.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
                 block, cuda_lib.stream(dev))
-            dsg_ffn.launches_simt += 1
-    dsg_ffn.launches += 1
+            cuda_lib.count(dsg_ffn, "simt")
     return out
 
 

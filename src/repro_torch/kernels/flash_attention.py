@@ -190,14 +190,13 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                             t_len, d, int(causal), offset,
                             1.0 / math.sqrt(d), p.tiles_per_split, p.splits,
                             cuda_lib.stream(dev))
-            flash_attention.launches_tc += 1
+            cuda_lib.count(flash_attention, "tc")
         else:
             cuda_lib.launch("repro_flash_attention", code, q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
                             s_len, t_len, d, int(causal), offset,
                             1.0 / math.sqrt(d), cuda_lib.stream(dev))
-            flash_attention.launches_simt += 1
-    flash_attention.launches += 1
+            cuda_lib.count(flash_attention, "simt")
     return out
 
 

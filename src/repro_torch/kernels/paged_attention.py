@@ -229,7 +229,7 @@ def paged_decode(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv,
                 g, d, ps, max_pages, walk, window, 1.0 / math.sqrt(d),
                 p.splits, cuda_lib.stream(dev))
-        paged_decode.launches_split += 1
+        cuda_lib.count(paged_decode, "split")
     else:
         if p.smem > SMEM_LIMIT:
             raise ValueError(f"{name}: {p.smem} bytes of shared memory "
@@ -242,8 +242,7 @@ def paged_decode(q, k_new, v_new, k_pages, v_pages, page_table, pos, *,
                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kv,
                 g, d, ps, max_pages, walk, window, 1.0 / math.sqrt(d),
                 THREADS, p.smem, cuda_lib.stream(dev))
-        paged_decode.launches_serial += 1
-    paged_decode.launches += 1
+        cuda_lib.count(paged_decode, "serial")
     return out, k_pages, v_pages
 
 

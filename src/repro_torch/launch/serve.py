@@ -8,6 +8,8 @@ synthetic traffic through the ServingEngine, as `repro.launch.serve` does.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --workload mixed --requests 4 --temperature 0.8 --top-p 0.9 \\
         --cache-backend paged --prefix-sharing --admission wave
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --workload mixed --replicas 2 --exec-mode threaded --chaos kill@1:6
     PYTHONPATH=src python -m repro_torch.launch.serve --workload mixed \\
         --requests 8 --max-seq 512 --cache-backend paged --dsg-serving
                                              # full width, on the GPU
@@ -15,12 +17,14 @@ synthetic traffic through the ServingEngine, as `repro.launch.serve` does.
 The defaults are the reference's: `--workload batch` (one batch of
 `--batch` prompts of `--prompt-len` tokens, `--gen` greedy tokens each) and
 `--cache-backend dense` and `--admission overlap` for `--workload mixed`,
-whose requests sample at `--temperature` / `--top-p` (0 = greedy).  The
-model is initialised from a seeded torch.Generator on --device (cuda by
-default).  With no GPU and no `--device cpu` the command exits non-zero;
-it never falls back to the CPU.  Flags of the reference launcher that this
-port does not cover yet (replicas, routing, chaos, fault tolerance) are
-rejected: ROADMAP.md lists them.
+whose requests sample at `--temperature` / `--top-p` (0 = greedy).
+`--replicas N` serves them through a Router (`--route-policy`,
+`--exec-mode`); `--chaos KIND@REPLICA:STEP[:SECONDS]` injects faults and
+turns on `--fault-tolerance`.  The model is initialised from a seeded
+torch.Generator on --device (cuda by default) and shared by every replica.
+With no GPU and no `--device cpu` the command exits non-zero; it never
+falls back to the CPU.  Flags of the reference launcher outside this list
+are rejected, naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.models import api
+from repro_torch.runtime.fault_tolerance import ReplicaFault
 from repro_torch.serving.dsg_runtime import DSGServingConfig
+from repro_torch.serving.router import FaultToleranceConfig
 from repro_torch.serving.workload import mixed_requests, run_workload
 
 
@@ -98,6 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma", type=float, default=None,
                     help="DSG sparsity: fraction of neuron groups dropped")
     ap.add_argument("--no-dsg", action="store_true")
+    ap.add_argument("--dsg-threshold-mode",
+                    choices=("topk", "shared", "ema"), default=None,
+                    help="DRS threshold mode (DSGConfig.threshold_mode): "
+                         "per-row topk, the paper's inter-sample shared "
+                         "threshold, or a cross-step EMA")
     ap.add_argument("--paged-kernel", choices=("auto", "kernel"),
                     default="auto",
                     help="paged decode: auto (the CUDA kernel on CUDA, its "
@@ -106,9 +117,58 @@ def build_parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="group-CSR FFN: auto (the CUDA kernel on CUDA, its "
                          "plain version on CPU) or kernel (CUDA only)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel serving replicas behind the "
+                         "front-end router (serving/router.py)")
+    ap.add_argument("--route-policy",
+                    choices=("round_robin", "least_queue", "least_pages"),
+                    default="least_queue",
+                    help="replica routing policy when --replicas > 1")
+    ap.add_argument("--exec-mode",
+                    choices=("sequential", "threaded", "sharded"),
+                    default="sequential",
+                    help="replica executor (serving/parallel_exec.py): "
+                         "sequential stepping (modeled makespan), a worker "
+                         "thread and stream per replica, or one dispatch "
+                         "for the group (both: measured makespan)")
+    # fault tolerance and chaos
+    ap.add_argument("--chaos", action="append", default=[],
+                    metavar="KIND@REPLICA:STEP[:SECONDS]",
+                    help="inject a deterministic fault: kill@1:40 raises on "
+                         "replica 1 at engine step 40, delay@0:10:0.05 "
+                         "sleeps 0.05 s, poison@2:9 corrupts resident "
+                         "outputs then raises; repeatable; implies "
+                         "--fault-tolerance")
+    ap.add_argument("--fault-tolerance", action="store_true",
+                    help="contain replica failures (FaultToleranceConfig); "
+                         "without it a replica failure ends the run")
+    ap.add_argument("--max-replica-restarts", type=int, default=1,
+                    help="restarts before a failed replica is marked DEAD")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="per-request re-dispatch budget after replica "
+                         "failures; beyond it the request fails")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline (submit to admission); an "
+                         "expired queued request finishes timed_out")
+    ap.add_argument("--stall-timeout-s", type=float, default=None,
+                    help="threaded executor: seconds without step progress "
+                         "before a replica is marked SUSPECT and aborted")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def parse_chaos(ap, spec: str) -> ReplicaFault:
+    """KIND@REPLICA:STEP[:SECONDS] (kill@1:40, delay@0:10:0.05) -> a
+    ReplicaFault; an argparse error otherwise."""
+    try:
+        kind, _, rest = spec.partition("@")
+        replica, step, *extra = rest.split(":")
+        return ReplicaFault(replica=int(replica), step=int(step), kind=kind,
+                            delay_s=float(extra[0]) if extra else 0.05)
+    except ValueError as e:
+        ap.error(f"bad --chaos spec {spec!r} (KIND@REPLICA:STEP[:SECONDS]): "
+                 f"{e}")
 
 
 def main(argv=None):
@@ -129,9 +189,19 @@ def main(argv=None):
         if args.dsg_serving:
             ap.error("--dsg-serving needs DSG enabled (drop --no-dsg)")
         cfg = cfg.replace(dsg=cfg.dsg._replace(enabled=False))
+    if args.dsg_threshold_mode is not None:
+        cfg = cfg.replace(dsg=cfg.dsg._replace(
+            threshold_mode=args.dsg_threshold_mode))
     if args.dsg_serving and args.workload != "mixed":
         ap.error("--dsg-serving is a mixed-workload (serving engine) "
                  "feature; add --workload mixed")
+    if (args.chaos or args.fault_tolerance or args.replicas != 1
+            or args.exec_mode != "sequential") and args.workload != "mixed":
+        ap.error("--replicas/--exec-mode/--chaos/--fault-tolerance drive "
+                 "the serving engine; add --workload mixed")
+    if args.replicas < 1:
+        ap.error(f"--replicas must be >= 1, got {args.replicas}")
+    faults = [parse_chaos(ap, c) for c in args.chaos] or None
     if (args.dsg_serving and args.decode_chunk > 1
             and args.dsg_refresh_interval % args.decode_chunk):
         ap.error(f"--decode-chunk {args.decode_chunk} must divide "
@@ -168,6 +238,13 @@ def main(argv=None):
 
     reqs = mixed_requests(cfg.vocab, args.requests, seed=args.seed,
                           temperature=args.temperature, top_p=args.top_p)
+    if args.deadline_s is not None:
+        for r in reqs:
+            r.deadline_s = args.deadline_s
+    ft = (FaultToleranceConfig(
+        max_replica_restarts=args.max_replica_restarts,
+        max_retries=args.max_retries, stall_timeout_s=args.stall_timeout_s)
+        if args.fault_tolerance or faults else None)
     stats = run_workload(
         cfg, model, dsg, reqs, admission=args.admission, n_slots=args.slots,
         max_seq=args.max_seq, prompt_bucket=args.prompt_bucket,
@@ -175,12 +252,17 @@ def main(argv=None):
         cache_tokens=args.cache_tokens, seed=args.seed,
         dsg_serving=(DSGServingConfig(args.dsg_refresh_interval)
                      if args.dsg_serving else None),
-        decode_chunk=args.decode_chunk, prefix_sharing=args.prefix_sharing)
+        decode_chunk=args.decode_chunk, prefix_sharing=args.prefix_sharing,
+        replicas=args.replicas, route_policy=args.route_policy,
+        exec_mode=args.exec_mode, fault_tolerance=ft, faults=faults)
     tag = f"{stats['admission']}/{stats['cache_backend']}"
     if stats["prefix_sharing"]:
         tag += "/shared"
     if stats["decode_chunk"] > 1:
         tag += f"/chunk{stats['decode_chunk']}"
+    if "route_policy" in stats:
+        tag += (f"/{stats['replicas']}x {stats['route_policy']}"
+                f"/{stats['exec_mode']}")
     print(f"[{tag} on {name}] {stats['requests']} requests, "
           f"{stats['tokens']} tokens in {stats['wall_s']:.2f}s = "
           f"{stats['tok_per_s']:.1f} tok/s (decode "
@@ -189,6 +271,16 @@ def main(argv=None):
           f"({stats['steps']} decode steps, cache "
           f"{stats['cache_bytes'] / 1e6:.2f} MB resident, "
           f"{stats['truncated']} truncated)")
+    if "makespan_s" in stats:
+        kind = "measured" if stats["makespan_measured"] else "modeled"
+        print(f"  {kind} parallel makespan {stats['makespan_s']:.2f}s = "
+              f"{stats['parallel_tok_per_s']:.1f} tok/s across "
+              f"{stats['replicas']} replicas ({stats['exec_mode']})")
+    if "replica_health" in stats:
+        print(f"  fault tolerance: {stats['completed_ok']} ok, "
+              f"{stats['failed']} failed, {stats['timed_out']} timed out, "
+              f"{stats['retries']} retries, {stats['faults_fired']} "
+              f"fault(s) fired; replica health {stats['replica_health']}")
     if stats["prefix_sharing"]:
         print(f"  prefix sharing: {stats['shared_page_hits']} page hit(s), "
               f"{stats['cow_copies']} COW cop(ies), "

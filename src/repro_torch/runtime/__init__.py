@@ -1,2 +1,2 @@
-"""The training loop's fault tolerance: restarts from checkpoints,
-straggler monitor, failure injection."""
+"""Fault tolerance: the training loop's restarts from checkpoints,
+straggler monitor and failure injection, and the serving chaos injector."""

@@ -1,5 +1,5 @@
-"""The training loop's fault tolerance: checkpoint/restart, a straggler
-monitor and failure injection for tests.
+"""Fault tolerance: the training loop's checkpoint/restart, a straggler
+monitor and failure injection, and the serving router's chaos injector.
 
 The contract:
   * every step is resumable: the model, DSG state, optimizer state and the
@@ -12,8 +12,10 @@ The contract:
     slower than `factor` x the rolling median.  It also keeps the steps
     that raised (`failures`), so a caller can tell a run that retried
     from one that did not.
-The serving side's chaos injector (`ReplicaFault`, `ServingFaultInjector`)
-belongs with the router (ROADMAP.md queue 1 item 6).
+
+Serving (serving/router.py): `ServingFaultInjector` fires deterministic
+`ReplicaFault`s (kill, delay, poison) at replica step boundaries, each
+once, and the router's fault tolerance contains them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import logging
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -62,9 +64,103 @@ class FaultInjector:
             raise self.exc(f"injected failure at step {step}")
 
 
+# -- serving chaos harness -----------------------------------------------------
+
+#: The token a "poison" fault writes over a lane's last emitted token: out
+#: of every vocabulary, so a poisoned stream that survived failover (instead
+#: of being replayed from its prompt) cannot pass a stream comparison.
+POISON_TOKEN = -7
+
+FAULT_KINDS = ("kill", "delay", "poison")
+
+
 class InjectedFault(RuntimeError):
     """An injected crash: what a device loss or a worker's OOM surfaces
     as, minus the flakiness."""
+
+
+@dataclass(frozen=True)
+class ReplicaFault:
+    """One deterministic serving fault: when replica `replica`'s engine
+    reaches step `step`, do `kind`.  "Reaches" is the first step boundary
+    whose counter is at or past `step`: a fused decode chunk advances the
+    counter by up to a chunk per boundary, so the fault lands on the next
+    chunk boundary, the only place the engine can contain it.
+
+      kill   — raise InjectedFault at the step boundary, before the step's
+               tokens land;
+      delay  — sleep `delay_s` inside the step (a straggler; it trips the
+               router's stall timeout when one is set);
+      poison — overwrite the last emitted token of every resident lane
+               with POISON_TOKEN, then raise: failover must discard the
+               partial output and replay from the prompt.
+    """
+    replica: int
+    step: int
+    kind: str = "kill"
+    delay_s: float = 0.05
+
+    def __post_init__(self):
+        if self.kind not in FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r}; "
+                             f"expected one of {FAULT_KINDS}")
+        if self.replica < 0 or self.step < 0:
+            raise ValueError(f"replica/step must be >= 0 "
+                             f"(got {self.replica}/{self.step})")
+
+
+class ServingFaultInjector:
+    """Deterministic serving faults keyed on (replica index, engine step),
+    each firing exactly once, across replica restarts and repeats too,
+    until `reset()` re-arms them.
+
+    `attach(engines)` stamps each engine's `replica_index` and installs the
+    injector as its `fault_injector`; `ServingEngine.begin_step()` calls
+    `on_step(engine)` at every step boundary.  Attach after the warm-up,
+    which resets the step counters: a fault keyed on an early step would
+    otherwise fire inside it."""
+
+    def __init__(self, faults: Sequence[ReplicaFault]):
+        self.faults: List[ReplicaFault] = [
+            f if isinstance(f, ReplicaFault) else ReplicaFault(*f)
+            for f in faults]
+        self._fired: set = set()
+        self.log: List[dict] = []      # the faults that fired
+
+    def attach(self, engines) -> None:
+        for r, eng in enumerate(engines):
+            eng.replica_index = r
+            eng.fault_injector = self
+
+    def detach(self, engines) -> None:
+        for eng in engines:
+            if eng.fault_injector is self:
+                eng.fault_injector = None
+
+    def reset(self) -> None:
+        """Re-arm every fault."""
+        self._fired.clear()
+        self.log.clear()
+
+    def on_step(self, eng) -> None:
+        for k, f in enumerate(self.faults):
+            # at or past the step: a chunked engine's counter jumps by up
+            # to a chunk per boundary
+            if (k in self._fired or f.replica != eng.replica_index
+                    or eng.steps < f.step):
+                continue
+            self._fired.add(k)
+            self.log.append({"replica": f.replica, "step": f.step,
+                             "kind": f.kind})
+            if f.kind == "delay":
+                time.sleep(f.delay_s)
+                continue
+            if f.kind == "poison":
+                for slot in eng.slots:
+                    if slot.req is not None and slot.req.output:
+                        slot.req.output[-1] = POISON_TOKEN
+            raise InjectedFault(f"injected {f.kind} at replica {f.replica} "
+                                f"step {f.step}")
 
 
 def run_with_restarts(*, step_fn: Callable, state, make_batch: Callable,

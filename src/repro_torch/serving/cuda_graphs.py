@@ -26,10 +26,22 @@ capture added to them as `captured[key]` and counts `replays[key]`;
 `launches(wrapper)` is captured launches x replays, the launches the
 replays ran.  A capture that fails raises: the engine never falls back to
 the eager loop on the card.
+
+A capture synchronises the device and empties the allocator's cache, and
+a capture in global mode fails when another thread launches work, so
+while worker threads drive engines (serving/parallel_exec.py) captures
+are closed (`capture_open` False): a key first met then raises.  Each
+cache captures on a stream of its own: cuBLAS keeps its workspace per
+(handle, stream), and a graph bakes in the workspace of the stream it was
+captured on, so graphs of two engines captured on one stream would share
+a workspace and race when their replays overlap on two streams.  The
+garbage collector is off during a capture: an unreachable object that
+holds a graph, freed mid-capture, would invalidate it.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import numpy as np
@@ -57,6 +69,7 @@ class GraphCache:
     def __init__(self, device: torch.device, words: int):
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
+        self.capture_stream = torch.cuda.Stream(device=device)
         self.host = torch.zeros(words, dtype=torch.int32, pin_memory=True)
         self.staged = torch.zeros(words, dtype=torch.int32, device=device)
         self.graphs = {}                   # key -> (CUDAGraph, output)
@@ -64,6 +77,7 @@ class GraphCache:
         self.replays = collections.Counter()
         self.capture_seconds = 0.0
         self.pool_bytes = 0                # reserved memory the captures grew
+        self.capture_open = True           # False while threads drive
 
     def stage(self, arrays) -> None:
         """Pack int32 arrays, in order, into the pinned mirror and copy it
@@ -87,8 +101,14 @@ class GraphCache:
 
     def replay(self, key, fn) -> torch.Tensor:
         """Replay the graph of `key`, capturing fn() first if the key is
-        new; returns the graph's output tensor (on the device)."""
+        new (raises instead while captures are closed); returns the graph's
+        output tensor (on the device)."""
         if key not in self.graphs:
+            if not self.capture_open:
+                raise RuntimeError(
+                    f"graph key {key} was first met while captures are "
+                    f"closed (worker threads are driving the engines): "
+                    f"capture every key before the drive (warmup_router)")
             self._capture(key, fn)
         graph, out = self.graphs[key]
         graph.replay()
@@ -111,8 +131,15 @@ class GraphCache:
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = fn()
+        collecting = gc.isenabled()
+        gc.disable()           # torch.cuda.graph collects once on entry
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=self.capture_stream):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self.captured[key] = {(w, n): after[(w, n)] - v
                               for (w, n), v in before.items()

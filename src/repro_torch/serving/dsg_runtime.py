@@ -9,9 +9,16 @@ lane, so a stream does not depend on which lanes share its steps) the
 decode step also returns the DRS group scores of its FFN inputs, and the
 host rewrites the due lanes' patterns from them.
 
-Selection is per-lane top-k ("topk"): serving lanes are unrelated requests,
-so the paper's shared threshold would couple them.  The "ema" threshold is
-not ported yet (ROADMAP.md).
+Threshold modes ("topk" | "ema") are per lane: serving lanes are unrelated
+requests, so the paper's shared threshold would couple them.  "ema" carries
+a per-(layer, lane) threshold, seeded at admission from the lane's top-k
+threshold and blended with it at each refresh, so a lane's group count
+floats with its activation mass.
+
+`record_step` logs each decode step's modeled FFN work (dense, CSR and
+padded-bound group units), and `flop_stats` sums the log.
+`double_mask_csr` re-applies a CSR pattern after a norm (the paper's
+double mask), for post-norm stacks.
 
 Free lanes mirror the donor lane's pattern in the step (mirror_csr) for the
 same reason they mirror its token and page-table row: a paged free lane
@@ -20,17 +27,20 @@ duplicate is bit-identical.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import double_mask as dm
 from repro_torch.core import drs, sparse_mask
 
 
 class DSGServingConfig(NamedTuple):
     refresh_interval: int = 8     # emitted tokens between DRS refreshes,
                                   # per lane (1 = re-select every step)
+    threshold: str = "topk"       # "topk" | "ema" per-lane selection
+    ema_decay: float = 0.95       # threshold EMA decay ("ema" mode)
 
 
 def as_serving_config(value) -> Optional[DSGServingConfig]:
@@ -57,6 +67,18 @@ def mirror_csr(csr: dict, free_mask: torch.Tensor,
                                   counts.index_select(1, donor), counts)}
 
 
+def double_mask_csr(norm_fn: Callable[[torch.Tensor], torch.Tensor],
+                    x: torch.Tensor, idx: torch.Tensor, counts: torch.Tensor,
+                    *, block: int, n_groups: int) -> torch.Tensor:
+    """Double-mask selection (core/double_mask.py) driven by a group-CSR
+    pattern: y = Mask(norm(Mask(x))) with the mask expanded from the index
+    list.  The decode stack is pre-norm and needs none; this is the hook
+    for post-norm stacks, whose norm after the block would densify the
+    zeros the CSR selection made."""
+    mask = sparse_mask.csr_to_dense(idx, counts, n_groups)
+    return dm.double_mask(norm_fn, x, mask, block)
+
+
 class DSGRuntime:
     """Host-side per-lane DRS state for one ServingEngine.
 
@@ -71,6 +93,9 @@ class DSGRuntime:
         if cfg.d_ff % cfg.dsg.block:
             raise ValueError(f"d_ff={cfg.d_ff} not divisible by DSG block "
                              f"{cfg.dsg.block}")
+        if scfg.threshold not in ("topk", "ema"):
+            raise ValueError(f"serving threshold must be 'topk' or 'ema' "
+                             f"(per-lane modes), got {scfg.threshold!r}")
         if scfg.refresh_interval < 1:
             raise ValueError("refresh_interval must be >= 1")
         self.cfg = scfg
@@ -78,34 +103,51 @@ class DSGRuntime:
         self.n_groups = cfg.d_ff // cfg.dsg.block
         self.keep = drs.keep_groups(cfg.d_ff, cfg.dsg.drs_cfg())
         self.n_layers = cfg.n_layers
+        self.n_slots = n_slots
         shape = (cfg.n_layers, n_slots)
         # every lane starts at the minimal pattern {group 0}, so a parked
         # lane never inflates the bound
         self.idx = np.zeros(shape + (self.n_groups,), np.int32)
         self.counts = np.ones(shape, np.int32)
+        self.ema = np.zeros(shape, np.float32)
         self.lane_active = np.zeros(n_slots, bool)
+        self.step_log: List[dict] = []    # one FLOP-model entry a step
         self._dev = {}
         self._version = 0
 
-    def _write_rows(self, lane: int, scores: np.ndarray):
-        """scores (L, G) -> the lane's per-layer CSR rows: every group at or
-        above the lane's k-th largest score, ascending."""
+    def _write_rows(self, lane: int, scores: np.ndarray, seed_ema: bool):
+        """scores (L, G) -> the lane's per-layer CSR rows, ascending: every
+        group at or above the lane's k-th largest score ("topk", and "ema"
+        at admission), or at or above the lane's EMA threshold ("ema" at a
+        refresh; the top group when the threshold is above every score).
+        In "ema" mode the threshold is then seeded with, or blended toward,
+        the k-th score."""
         g, keep = self.n_groups, self.keep
+        ema = self.cfg.threshold == "ema"
         for l in range(self.n_layers):
             s = scores[l]
-            thr = np.partition(s, g - keep)[g - keep]
-            active = np.flatnonzero(s >= thr).astype(np.int32)
+            thr_topk = np.partition(s, g - keep)[g - keep]
+            thr = self.ema[l, lane] if ema and not seed_ema else thr_topk
+            mask = s >= thr
+            if not mask.any():
+                mask[int(np.argmax(s))] = True
+            active = np.flatnonzero(mask).astype(np.int32)
             self.idx[l, lane] = 0
             self.idx[l, lane, :len(active)] = active
             self.counts[l, lane] = len(active)
+            if ema:
+                self.ema[l, lane] = (thr_topk if seed_ema else
+                                     self.cfg.ema_decay * thr
+                                     + (1 - self.cfg.ema_decay) * thr_topk)
         self._version += 1
         self._dev.clear()
 
     def set_lane_from_scores(self, lane: int, scores: np.ndarray):
-        """Admission: seed the lane's pattern from the DRS scores (L, G) of
-        the prompt's last token; the lane decodes sparsely from its first
-        step."""
-        self._write_rows(lane, np.asarray(scores, np.float32))
+        """Admission: seed the lane's pattern (and its EMA thresholds) from
+        the DRS scores (L, G) of the prompt's last token; the lane decodes
+        sparsely from its first step."""
+        self._write_rows(lane, np.asarray(scores, np.float32),
+                         seed_ema=True)
         self.lane_active[lane] = True
 
     def update_from_scores(self, scores: np.ndarray, lanes):
@@ -114,12 +156,13 @@ class DSGRuntime:
         scores = np.asarray(scores, np.float32)
         for i in lanes:
             if self.lane_active[i]:
-                self._write_rows(i, scores[:, i])
+                self._write_rows(i, scores[:, i], seed_ema=False)
 
     def reset_lane(self, lane: int):
         """Retirement: back to the minimal pattern."""
         self.idx[:, lane] = 0
         self.counts[:, lane] = 1
+        self.ema[:, lane] = 0.0
         self.lane_active[lane] = False
         self._version += 1
         self._dev.clear()
@@ -132,9 +175,13 @@ class DSGRuntime:
         return sparse_mask.active_group_bound(mc, self.n_groups)
 
     def warm_bounds(self) -> tuple:
-        """The CSR bounds warm_decode runs: per-lane top-k pins every lane
-        at `keep` groups (up to score ties), so one bucket suffices."""
-        return (sparse_mask.active_group_bound(self.keep, self.n_groups),)
+        """The CSR bounds warm_decode runs: "topk" pins every lane at `keep`
+        groups (up to score ties), so one bucket suffices; under "ema" the
+        counts float, so every bucket can be reached."""
+        if self.cfg.threshold == "topk":
+            return (sparse_mask.active_group_bound(self.keep,
+                                                   self.n_groups),)
+        return sparse_mask.active_group_buckets(self.n_groups)
 
     def device_csr(self, bound: int) -> dict:
         """The pattern state sliced to `bound` on the device, with counts
@@ -150,3 +197,32 @@ class DSGRuntime:
                 ).to(self.device),
             }
         return self._dev[key]
+
+    # -- FLOP accounting --------------------------------------------------------
+
+    def record_step(self, active, bound: int):
+        """Log one decode step's modeled FFN group units: dense, every group
+        of every active lane; csr, the lanes' counts the CSR kernel walks;
+        bound, the padded width a gather at the pow2 bound contracts."""
+        n = len(active)
+        self.step_log.append({
+            "active": n,
+            "dense_units": self.n_layers * self.n_groups * n,
+            "csr_units": int(self.counts[:, list(active)].sum()),
+            "bound_units": self.n_layers * bound * n,
+        })
+
+    def flop_stats(self) -> dict:
+        """The modeled FFN FLOP reduction over the logged steps."""
+        if not self.step_log:
+            raise ValueError("no decode steps recorded")
+        dense = sum(e["dense_units"] for e in self.step_log)
+        csr = sum(e["csr_units"] for e in self.step_log)
+        bnd = sum(e["bound_units"] for e in self.step_log)
+        return {"steps": len(self.step_log),
+                "dense_units": dense, "csr_units": csr,
+                "bound_units": bnd,
+                "flop_reduction_csr": dense / max(csr, 1),
+                "flop_reduction_bound": dense / max(bnd, 1),
+                "overhead_bytes": sparse_mask.csr_overhead_bytes(
+                    (self.n_layers, self.n_slots), self.n_groups)}

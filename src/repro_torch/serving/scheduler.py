@@ -82,14 +82,15 @@ def live_page_buckets(max_pages: int) -> tuple:
 _ADMIT_SALT = 0xADA117   # keeps the admission draws off the decode stream
 
 #: Terminal request states: "ok" at retirement, "timed_out" for a deadline
-#: that lapsed in the queue ("failed" is the router's, not yet ported).
+#: that lapsed in a queue, "failed" for a request the router's fault
+#: tolerance gave up on (serving/router.py).
 REQUEST_STATUSES = ("pending", "ok", "failed", "timed_out")
 
 
 class EngineAborted(RuntimeError):
-    """Raised by `begin_step` of an engine whose `abort` flag was set: the
-    engine abandons its step at the boundary, and the caller reclaims its
-    requests (`reset`)."""
+    """Raised by `begin_step` of an engine whose `abort` flag was set (the
+    router's stall-timeout containment): the engine abandons its step at
+    the boundary, and the caller reclaims its requests (`reset`)."""
 
 
 @dataclass
@@ -109,6 +110,7 @@ class Request:
     first_token: float = 0.0
     finished: float = 0.0
     status: str = "pending"          # one of REQUEST_STATUSES
+    retries: int = 0                 # failover re-dispatches consumed
 
     def __post_init__(self):
         if not self.temperature >= 0:
@@ -356,6 +358,8 @@ class ServingEngine:
         # set by another thread to make the next begin_step raise
         # EngineAborted; cleared by that raise and by reset()
         self.abort = False
+        self.replica_index = 0        # set by the Router (attribution)
+        self.fault_injector = None    # ServingFaultInjector (chaos runs)
         self.backend = kv_cache.get_backend(cache_backend,
                                             page_size=page_size,
                                             total_tokens=cache_tokens,
@@ -614,10 +618,20 @@ class ServingEngine:
         """Host half of a decode step: admit queued prompts, emit each
         active lane's pending token (chunk 1), grow page tables for this
         dispatch's write positions, and build the decode operands (None
-        when idle).  Raises EngineAborted, once, when `abort` is set."""
+        when idle).  Raises EngineAborted, once, when `abort` is set; then
+        gives the fault injector, if any, its step boundary."""
         if self.abort:
+            # cleared here, so that a restarted replica does not abort
+            # again at once; reset() clears it too
             self.abort = False
-            raise EngineAborted("engine aborted at a step boundary")
+            raise EngineAborted(
+                f"replica {self.replica_index} aborted at step boundary "
+                f"(stall-timeout containment)")
+        if self.fault_injector is not None:
+            # chaos hook: kill raises here, before this step's tokens land;
+            # delay sleeps inside the step; poison corrupts the resident
+            # outputs, then raises (runtime/fault_tolerance.py)
+            self.fault_injector.on_step(self)
         self._admit()
         active = [i for i, s in enumerate(self.slots) if not s.free]
         if not active:
@@ -734,7 +748,9 @@ class ServingEngine:
                if len(self.slots[i].req.output) % rt.cfg.refresh_interval
                == 0]
         self.refresh_steps += bool(due)
-        nxt, scores = self._decode(plan, rt.device_csr(rt.bound()),
+        bound = rt.bound()
+        rt.record_step(plan.active, bound)
+        nxt, scores = self._decode(plan, rt.device_csr(bound),
                                    refresh=bool(due))
         return nxt, scores, due
 
@@ -765,13 +781,14 @@ class ServingEngine:
                    sample: bool):
         """Run one chunk over host int32 operand arrays: on CUDA one staged
         copy, one graph replay (captured on the key's first use) and one
-        read-back; on the CPU the eager micro-step loop.  Returns host
+        read-back; on the CPU, or for an engine whose graphs a sharded
+        executor dropped, the eager micro-step loop.  Returns host
         (blk, flags, final tokens, scores or None)."""
         c, b = self.decode_chunk, self.n_slots
         if self.graphs is None:
             out = self._chunk_fn([torch.from_numpy(np.ascontiguousarray(a))
-                                  for a in arrays], live_pages, refresh,
-                                 sample)
+                                  .to(self.device) for a in arrays],
+                                 live_pages, refresh, sample)
         else:
             shapes = [a.shape for a in arrays]
             key = (live_pages, shapes[9][2] if len(shapes) > 9 else 0,
@@ -791,10 +808,17 @@ class ServingEngine:
 
     def _chunk_operands(self, plan: StepPlan):
         """The chunk's int32 operand arrays, with the DSG runtime's CSR
-        pattern at the current bound."""
+        pattern at the current bound.  A chunk-1 plan
+        (the sharded executor runs it as a chunk of one) stops at no
+        token and has a budget of one."""
+        b = self.n_slots
+        left = (plan.emit_left if plan.emit_left is not None
+                else np.ones(b, np.int32))
+        eos = (plan.eos_ids if plan.eos_ids is not None
+               else np.full(b, -1, np.int32))
         arrays = [np.asarray(a, np.int32) for a in (
-            plan.tok, plan.pos, plan.free_mask, plan.emit_left, plan.eos_ids,
-            plan.nth, plan.draws)]
+            plan.tok, plan.pos, plan.free_mask, left, eos, plan.nth,
+            plan.draws)]
         arrays += [np.asarray(plan.temps, np.float32).view(np.int32),
                    np.asarray(plan.top_ps, np.float32).view(np.int32)]
         rt = self.dsg_rt
@@ -806,10 +830,11 @@ class ServingEngine:
 
     def _dispatch_chunk(self, plan: StepPlan):
         """Device half of a fused chunk: host (blk, flags, next tokens,
-        scores or None)."""
+        scores or None) and the CSR bound it ran at (None without DSG)."""
         self.refresh_steps += plan.refresh
-        return self._run_chunk(self._chunk_operands(plan), plan.live_pages,
-                               plan.refresh, plan.sample)
+        bound = self.dsg_rt.bound() if self.dsg_rt is not None else None
+        return (*self._run_chunk(self._chunk_operands(plan), plan.live_pages,
+                                 plan.refresh, plan.sample), bound)
 
     def warm_decode(self, sample: bool = False):
         """Run every static variant of the fused chunk this engine can
@@ -863,13 +888,21 @@ class ServingEngine:
 
     def commit_chunk(self, plan: StepPlan, blk: np.ndarray,
                      flags: np.ndarray, next_tok: np.ndarray,
-                     seconds: float, scores=None):
+                     seconds: float, scores=None, bound=None):
         """Record a fused chunk: append each lane's emitted tokens (a lane's
         flag column is a monotone prefix), latch the pending next tokens,
         count the micro-steps that had a live lane, and retire finished
         lanes.  Retirement re-derives the device's freeze conditions from
         the appended output (EOS == output[-1], len(output) >= max_new,
-        pos >= max_seq)."""
+        pos >= max_seq).  With the DSG runtime and the chunk's CSR
+        `bound`, each micro-step that had a live lane is one FLOP-model
+        entry over the lanes live at it, as a chunk-1 run logs it."""
+        rt = self.dsg_rt
+        if rt is not None and bound is not None:
+            for k in range(flags.shape[0]):
+                live = [i for i in plan.active if flags[k, i]]
+                if live:
+                    rt.record_step(live, bound)
         emitted = 0
         for i in plan.active:
             slot = self.slots[i]
@@ -886,7 +919,6 @@ class ServingEngine:
         self.decode_tokens += emitted
         self.steps += int(flags.any(axis=1).sum())
         retired = self._retire(plan.active)
-        rt = self.dsg_rt
         if rt is not None:
             for i in retired:
                 rt.reset_lane(i)
@@ -922,9 +954,10 @@ class ServingEngine:
             return
         t0 = time.perf_counter()
         if plan.chunk > 1:
-            blk, flags, tok_f, scores = self._dispatch_chunk(plan)
+            blk, flags, tok_f, scores, bound = self._dispatch_chunk(plan)
             self.commit_chunk(plan, blk, flags, tok_f,
-                              time.perf_counter() - t0, scores=scores)
+                              time.perf_counter() - t0, scores=scores,
+                              bound=bound)
             return
         scores = due = None
         if self.dsg_rt is not None:

@@ -1,8 +1,9 @@
-"""Synthetic serving traffic, open-loop arrivals and the single-engine
-measurement harness (`launch/serve.py --workload mixed` and
-`chip_smoke.py` drive the engine through here): `warmup_engine` reaches
-every shape first, then `run_engine` measures; `run_workload` is the two
-in one.
+"""Synthetic serving traffic, open-loop arrivals and the measurement
+harness (`launch/serve.py --workload mixed` and `chip_smoke.py` drive the
+engine and the router through here): `warmup_engine` / `warmup_router`
+reach every shape first, then `run_engine` measures; `run_workload` is the
+two in one, through one engine or a Router over replicas, with optional
+fault tolerance and injected faults.
 
 Open-loop evaluation: a closed-loop drain measures the engine at its own
 pace, so queueing delay never shows.  `poisson_arrivals` /
@@ -21,6 +22,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.runtime.fault_tolerance import ServingFaultInjector
+from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import Request, ServingEngine
 
 
@@ -164,24 +167,31 @@ def trace_arrivals(inter_arrival_s, *, start: float = 0.0) -> np.ndarray:
 
 def run_open_loop(runner, requests: List[Request], arrivals,
                   *, max_steps: int = 200_000) -> Dict[int, Request]:
-    """Drive an engine open-loop: request i is submitted at wall-clock
-    offset arrivals[i] whether or not the engine has room, so queueing
-    delay lands in TTFT as a user would see it.  Between arrivals the loop
-    steps the engine while it has work, else sleeps toward the next
-    arrival.  Returns {uid: Request}.  Routers are not ported yet
-    (ROADMAP.md queue 1 item 6)."""
-    if not isinstance(runner, ServingEngine):
-        raise NotImplementedError(
-            f"run_open_loop drives a ServingEngine; {type(runner).__name__} "
-            f"is not one (the router is not ported yet, see ROADMAP.md)")
+    """Drive a ServingEngine, or a Router on a lockstep executor, open-loop:
+    request i is submitted at wall-clock offset arrivals[i] whether or not
+    there is room, so queueing delay lands in TTFT as a user would see it.
+    Between arrivals the loop steps the runner while it has work, else
+    sleeps toward the next arrival.  Returns {uid: Request}.  A
+    free-running (threaded) router owns its drive loop, so the ticks
+    cannot interleave with timed submissions: it raises."""
+    is_router = isinstance(runner, Router)
+    if not (is_router or isinstance(runner, ServingEngine)):
+        raise TypeError(f"run_open_loop drives a ServingEngine or a Router, "
+                        f"not {type(runner).__name__}")
     arrivals = np.asarray(arrivals, dtype=float)
     if len(arrivals) != len(requests):
         raise ValueError(f"{len(requests)} requests but {len(arrivals)} "
                          f"arrival offsets")
     if len(arrivals) > 1 and (np.diff(arrivals) < 0).any():
         raise ValueError("arrival offsets must be non-decreasing")
+    if is_router and not runner.executor.lockstep:
+        raise ValueError(
+            f"open-loop driving needs a lockstep runner; executor "
+            f"{runner.executor.name!r} free-runs its replicas")
 
     def busy():
+        if is_router:
+            return runner._busy()
         return bool(runner.queue) or any(not s.free for s in runner.slots)
 
     t0 = time.perf_counter()
@@ -202,7 +212,7 @@ def run_open_loop(runner, requests: List[Request], arrivals,
             # idle: sleep toward the next arrival, polling at least every
             # 10 ms
             time.sleep(min(max(arrivals[i] - now, 0.0), 0.01))
-    return dict(runner.done)
+    return runner.done() if is_router else dict(runner.done)
 
 
 def latency_stats(done: Dict[int, Request]) -> Dict[str, float]:
@@ -287,6 +297,23 @@ def warmup_engine(eng: ServingEngine, vocab: int, warm_temp: float = 0.0,
         eng.graphs.replays.clear()
 
 
+def warmup_router(router: Router, vocab: int, warm_temp: float = 0.0,
+                  max_steps: int = 100_000, requests=None) -> None:
+    """Warm every replica (`warmup_engine`: on the card each replica
+    captures its own graphs), then the executor's own graphs (the sharded
+    group step, `executor.warm()`), then zero the router's counters.  The
+    engines are warmed directly, which is safe while no drive is in
+    flight; every key a threaded drive can meet must be captured here,
+    since captures are closed during it.  Pass `requests` to derive
+    warm_temp from the traffic (warm_temp_for)."""
+    if requests is not None:
+        warm_temp = warm_temp_for(requests, warm_temp)
+    for eng in router.engines:
+        warmup_engine(eng, vocab, warm_temp, max_steps=max_steps)
+    router.executor.warm(sample=warm_temp > 0)
+    router.reset_counters()
+
+
 def run_engine(eng: ServingEngine, requests: List[Request], *,
                max_steps: int = 100_000) -> Dict[str, float]:
     """Serve the requests through `eng` and return throughput/latency
@@ -340,17 +367,108 @@ def run_workload(cfg, model, dsg, requests: List[Request], *,
                  admission: str = "overlap", n_slots: int = 4,
                  max_seq: int = 384, prompt_bucket: int = 256,
                  cache_backend: str = "dense", page_size: int = 16,
-                 cache_tokens=None, seed: int = 0, dsg_serving=None,
+                 cache_tokens=None, seed: int = 0, replicas: int = 1,
+                 route_policy: str = "least_queue",
+                 exec_mode: str = "sequential", dsg_serving=None,
+                 fault_tolerance=None, faults=None,
                  decode_chunk: int = 1, prefix_sharing: bool = False,
                  max_steps: int = 100_000) -> Dict[str, float]:
-    """Run the requests through one ServingEngine on the model's device
-    after `warmup_engine` (sampling variants included when the requests
-    sample), and return throughput/latency stats."""
-    eng = ServingEngine(cfg, model, dsg, n_slots=n_slots, max_seq=max_seq,
-                        prompt_bucket=prompt_bucket, admission=admission,
-                        cache_backend=cache_backend, page_size=page_size,
-                        cache_tokens=cache_tokens, seed=seed,
-                        dsg_serving=dsg_serving, decode_chunk=decode_chunk,
-                        prefix_sharing=prefix_sharing)
-    warmup_engine(eng, cfg.vocab, max_steps=max_steps, requests=requests)
-    return run_engine(eng, requests, max_steps=max_steps)
+    """Run the requests through one ServingEngine (replicas=1, sequential,
+    no fault tolerance) or a Router over `replicas` engines on the model's
+    device, after the warm-up (sampling variants included when the
+    requests sample), and return throughput/latency stats.
+
+    Router runs add `makespan_s` (MODELED under the sequential executor,
+    MEASURED under the threaded and sharded ones; `makespan_measured`
+    says which), `parallel_tok_per_s` (tokens / makespan), the router's
+    steps and each replica's stats.  `faults` (a ReplicaFault list or a
+    ServingFaultInjector) injects deterministic faults, attached after
+    the warm-up; it turns on the default fault tolerance and the Router
+    path, and adds the chaos counters (completed_ok, failed, timed_out,
+    retries, replica_health, faults_fired)."""
+    engine_kw = dict(n_slots=n_slots, max_seq=max_seq,
+                     prompt_bucket=prompt_bucket, admission=admission,
+                     cache_backend=cache_backend, page_size=page_size,
+                     cache_tokens=cache_tokens, dsg_serving=dsg_serving,
+                     decode_chunk=decode_chunk,
+                     prefix_sharing=prefix_sharing)
+    if faults is not None and fault_tolerance is None:
+        fault_tolerance = True
+    if (replicas == 1 and exec_mode == "sequential"
+            and fault_tolerance is None):
+        eng = ServingEngine(cfg, model, dsg, seed=seed, **engine_kw)
+        warmup_engine(eng, cfg.vocab, max_steps=max_steps,
+                      requests=requests)
+        return run_engine(eng, requests, max_steps=max_steps)
+    router = Router(cfg, model, dsg, n_replicas=replicas,
+                    policy=route_policy, exec_mode=exec_mode, seed=seed,
+                    fault_tolerance=fault_tolerance, **engine_kw)
+    warmup_router(router, cfg.vocab, max_steps=max_steps, requests=requests)
+    injector = None
+    if faults is not None:
+        injector = (faults if hasattr(faults, "on_step")
+                    else ServingFaultInjector(faults))
+        injector.attach(router.engines)
+    for r in requests:
+        router.submit(r)
+    try:
+        t0 = time.perf_counter()
+        done = router.run(max_steps=max_steps)
+        if router.engines[0].device.type == "cuda":
+            torch.cuda.synchronize(router.engines[0].device)
+        wall = time.perf_counter() - t0
+    finally:
+        # release the worker threads even when the run raises
+        router.close()
+    return router_stats(router, done, wall, injector)
+
+
+def router_stats(router: Router, done: Dict[int, Request], wall: float,
+                 injector=None) -> Dict[str, float]:
+    """Throughput, latency, makespan and per-replica accounting of a
+    finished router run, with the chaos counters when fault tolerance is
+    on."""
+    toks = sum(len(r.output) for r in done.values())
+    engines = router.engines
+    e0 = engines[0]
+    makespan = router.makespan_seconds()
+    stats = {
+        "admission": e0.admission,
+        "cache_backend": e0.cache.kind,
+        "replicas": len(engines),
+        "decode_chunk": e0.decode_chunk,
+        "prefix_sharing": e0.prefix_sharing,
+        "requests": len(done),
+        "tokens": toks,
+        "truncated": sum(r.truncated for r in done.values()),
+        "wall_s": wall,
+        "tok_per_s": toks / max(wall, 1e-9),
+        **latency_stats(done),
+        "route_policy": router.policy.name,
+        "exec_mode": router.executor.name,
+        "cache_bytes": sum(int(e.backend.resident_bytes(e.cache))
+                           for e in engines),
+        "decode_tok_per_s": (sum(e.decode_tokens for e in engines)
+                             / max(sum(e.decode_seconds for e in engines),
+                                   1e-9)),
+        # engine decode steps; one router tick steps up to every replica
+        "steps": sum(e.steps for e in engines),
+        "admissions": sum(e.admissions for e in engines),
+        "refresh_steps": sum(e.refresh_steps for e in engines),
+        "router_steps": router.steps,
+        "makespan_s": makespan,
+        "makespan_measured": router.executor.measured,
+        "parallel_tok_per_s": toks / max(makespan, 1e-9),
+        "per_replica": router.replica_stats(),
+    }
+    if router.ft is not None:
+        stats.update({
+            "completed_ok": sum(r.status == "ok" for r in done.values()),
+            "failed": sum(r.status == "failed" for r in done.values()),
+            "timed_out": sum(r.status == "timed_out"
+                             for r in done.values()),
+            "retries": sum(r.retries for r in done.values()),
+            "replica_health": [h.state for h in router.health],
+            "faults_fired": len(injector.log) if injector is not None else 0,
+        })
+    return stats

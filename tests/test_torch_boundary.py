@@ -49,4 +49,6 @@ def test_boundary_check_catches_forbidden_imports():
 
 def test_port_tree_is_covered():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "ops.py", "scheduler.py", "bridge.py"} <= names
+    assert {"chip_smoke.py", "ops.py", "scheduler.py", "bridge.py",
+            "router.py", "parallel_exec.py", "contracts.py",
+            "fault_tolerance.py", "dsg_runtime.py", "workload.py"} <= names

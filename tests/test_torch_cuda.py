@@ -1040,3 +1040,118 @@ def test_trained_bf16_model_keeps_master_weights_on_card(cuda):
                                 {"tokens": torch.zeros(1, 4, dtype=torch.long,
                                                        device=cuda)}, cache)
     assert not logits.requires_grad and not cache["k"].requires_grad
+
+
+# -- the router's executors on the card ------------------------------------------
+
+def _router_streams(device, exec_mode, *, backend="paged", chunk=8,
+                    dsg_serving=None, replicas=2, faults=None,
+                    policy="least_queue"):
+    """The smoke model's greedy streams (f32) over 6 requests through one
+    engine (replicas=None) or a warmed Router; returns (streams, router or
+    engine)."""
+    from repro_torch.runtime.fault_tolerance import ServingFaultInjector
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.workload import warmup_engine, warmup_router
+    eng = _smoke_engine(device, dsg_serving, backend, chunk)
+    if replicas is None:
+        warmup_engine(eng, eng.cfg.vocab)
+        runner = eng
+    else:
+        runner = Router(eng.cfg, eng.model, eng.dsg, n_replicas=replicas,
+                        policy=policy, exec_mode=exec_mode, n_slots=2,
+                        max_seq=64, prompt_bucket=32, page_size=8,
+                        cache_backend=backend, dsg_serving=dsg_serving,
+                        decode_chunk=chunk,
+                        fault_tolerance=True if faults else None)
+        warmup_router(runner, eng.cfg.vocab)
+        if faults:
+            ServingFaultInjector(faults).attach(runner.engines)
+    engines = [eng] if replicas is None else runner.engines
+    keys = [set(e.graphs.graphs) for e in engines if e.graphs is not None]
+    for r in _smoke_requests(eng.cfg.vocab):
+        runner.submit(r)
+    try:
+        done = runner.run(4000)
+    finally:
+        if replicas is not None:
+            runner.close()
+    assert all(r.status == "ok" for r in done.values()) and len(done) == 6
+    # every key was captured by the warm-up: the run captured nothing
+    assert keys == [set(e.graphs.graphs) for e in engines
+                    if e.graphs is not None]
+    return {u: list(r.output) for u, r in done.items()}, runner
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("dsg_serving", [None, DSGServingConfig(8)],
+                         ids=["no_dsg", "dsg"])
+def test_threaded_router_streams_equal_one_engine_on_card(
+        cuda, dsg_serving, chunk):
+    """Two replicas, each driven by its worker thread on its own stream,
+    give one engine's streams on the card; the drive captures no graph
+    (warmup_router captured every key) and a kill mid-run changes no
+    stream."""
+    from repro_torch.runtime.fault_tolerance import ReplicaFault
+    want, _ = _router_streams(cuda, None, chunk=chunk,
+                              dsg_serving=dsg_serving, replicas=None)
+    got, router = _router_streams(cuda, "threaded", chunk=chunk,
+                                  dsg_serving=dsg_serving)
+    assert got == want
+    assert all(s is not None for s in router.executor._streams)
+    # round_robin puts every other request on replica 1, so it reaches
+    # step 3 while it holds requests
+    got, router = _router_streams(cuda, "threaded", chunk=chunk,
+                                  dsg_serving=dsg_serving,
+                                  faults=[ReplicaFault(replica=1, step=3)],
+                                  policy="round_robin")
+    assert got == want
+    assert router.health[1].restarts == 1
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_sharded_group_graph_streams_equal_one_engine_on_card(
+        cuda, backend, chunk):
+    """One group tick is one replay of a graph that holds both replicas'
+    step (chunk 1) or chunk bodies: the streams are one engine's, warm()
+    captured every key, and the paged kernel's replayed launches are
+    layers x chunk x 2 replicas x ticks."""
+    want, _ = _router_streams(cuda, None, backend=backend, chunk=chunk,
+                              replicas=None)
+    got, router = _router_streams(cuda, "sharded", backend=backend,
+                                  chunk=chunk)
+    assert got == want
+    # the group graph replaces the engines' chunk graphs
+    assert all(e.graphs is None for e in router.engines)
+    graphs = router.executor.graphs
+    ticks = sum(graphs.replays.values())
+    n_l = router.engines[0].cfg.n_layers
+    assert ticks > 0 and len(graphs.graphs) == len(graphs.captured)
+    keys = {k[0] for k in graphs.graphs}
+    want_keys = ({1, 2, 4, 8} if backend == "paged" else {0})
+    assert keys == want_keys
+    if backend == "paged":
+        assert graphs.launches(paged_attention.paged_decode) == \
+            n_l * chunk * 2 * ticks
+
+
+def test_capture_inside_threaded_drive_raises_on_card(cuda):
+    """A chunked engine that was not warmed meets its first graph key
+    inside a threaded drive: the capture is refused and raises, and the
+    engine never runs the chunk eagerly instead."""
+    from repro_torch.serving.router import Router
+    eng = _smoke_engine(cuda, None, "paged", 8)
+    router = Router(eng.cfg, eng.model, eng.dsg, n_replicas=2,
+                    exec_mode="threaded", n_slots=2, max_seq=64,
+                    prompt_bucket=32, page_size=8, cache_backend="paged",
+                    decode_chunk=8)
+    for r in _smoke_requests(eng.cfg.vocab):
+        router.submit(r)
+    try:
+        with pytest.raises(RuntimeError, match="captures are closed"):
+            router.run(400)
+    finally:
+        router.close()
+    assert all(not e.graphs.graphs for e in router.engines)
+    assert all(e.graphs.capture_open for e in router.engines)

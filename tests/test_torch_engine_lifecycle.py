@@ -344,7 +344,7 @@ def test_run_open_loop_checks_its_arguments(parts):
         workload.run_open_loop(eng, reqs, [0.0])
     with pytest.raises(ValueError, match="non-decreasing"):
         workload.run_open_loop(eng, reqs, [0.2, 0.1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ServingEngine or a Router"):
         workload.run_open_loop(object(), reqs, [0.0, 0.1])
     eng.submit(Request(uid=9, prompt=np.arange(4, dtype=np.int32),
                        max_new=50))

@@ -130,10 +130,11 @@ def test_serve_cli_needs_a_gpu_unless_told_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--replicas", "2"], "ROADMAP"), (["--route-policy", "least_pages"],
-                                       "ROADMAP"),
-    (["--fault-tolerance"], "ROADMAP"), (["--chaos", "crash"], "ROADMAP"),
-    (["--exec-mode", "threaded"], "ROADMAP"),
+    (["--params", "weights.npz"], "ROADMAP"),
+    (["--workload", "mixed", "--replicas", "0"], "--replicas must be >= 1"),
+    (["--replicas", "2"], "add --workload mixed"),
+    (["--workload", "mixed", "--chaos", "crash"], "bad --chaos spec"),
+    (["--exec-mode", "processes"], "invalid choice"),
     (["--paged-kernel", "xla"], "invalid choice"),
     (["--dsg-apply", "dense"], "invalid choice")])
 def test_serve_cli_rejects_unported_flags(flag, says, capsys):
