@@ -102,9 +102,11 @@ result line):
             shows that the replays ran the kernels: 24 x 8 x replays for
             the decode kernels, apart from any counter.
 14. check chunk — phase 5 over {dense, paged} x {chunk 1, 8} x {DSG serving
-            off, on (refresh 8)}, and four runs with sampled lanes or prefix
-            sharing on (12 in all): the card's smoke-width f32 streams equal
-            the CPU's.
+            off, on (refresh 8)}, four runs with sampled lanes or prefix
+            sharing on, and the deepseek-moe-16b and llava-next-34b smoke
+            models (DSG on, mask mode) over {dense, paged} x {chunk 1, 8}
+            (20 in all): the card's smoke-width f32 streams equal the
+            CPU's.
 15. solo  — each of phase 3's 8 requests served alone at chunk 8, one
             after another through one engine: each stream equals that
             request's in phase 3 and in phase 10.
@@ -176,12 +178,50 @@ result line):
             topk's.  Prints the modeled and measured makespans,
             parallel tok/s, dispatches of heavy requests per replica,
             per-replica busy seconds, retries and health.
+21. moe — deepseek-moe-16b at full width in bf16 (28 layers, d 2048, 16
+            heads / 16 kv of 128, 64 routed experts + 2 shared of 1408,
+            top-6, vocab 102400, no depth cut), random weights from a
+            seeded torch.Generator, DSG as the config sets it (mask mode
+            inside every expert and the shared experts, gamma 0.5, shared
+            threshold, block 128, k 128), paged KV (page 16), 4 slots,
+            max_seq 512, after phase 19's memory is freed.  (a) 4 fixed
+            lanes (phase 11's prompts, 32 new tokens) at chunk 1 eager and
+            chunk 8 in graphs, DSG on and DSG off: streams equal 4 of 4;
+            the eager run's paged_decode launches are layers x steps, all
+            split, and the graphs replay layers x 8 x replays.  (b) phase
+            3's 8 mixed requests at chunk 8 after warmup_engine
+            (graph_serve's accounting): every request ok, a 4 x 128-token
+            forward's logits finite; TPOT, TTFT, decode tok/s.  (c)
+            paged_decode against its plain version on layer 0's operands
+            of decode step 12, timed.  (d) peak allocated memory.  (e) the
+            device's busy share over a profiled chunk-8 run of 4 x 24
+            tokens, eager prefills included (the trace counts layers x 8 x
+            replays split kernels), and over 3 replays of a captured chunk
+            alone, whose kernels' summed time / 24 is one decode
+            micro-step's device time, printed beside its byte bound: every
+            weight but the embedding (all 64 experts of every layer: the
+            reference's dispatch runs every expert's capacity slots) and
+            the DSG buffers at 3.35 TB/s.
+22. configs — llama3.2-3b, phi3-mini-3.8b and mistral-nemo-12b in turn,
+            at full width in bf16, random weights, DSG serving on (refresh
+            8), paged (page 16), 4 slots, max_seq 512, each freed before
+            the next: 4 fixed lanes x 16 new tokens at chunk 1 (eager, the
+            four serve kernels' counters set to 0 before and read after:
+            layers x steps for paged decode and the CSR FFN, layers x
+            (admissions + refresh steps) for the DRS kernels, every launch
+            on the path its shape plans) and chunk 8 (graphs): streams
+            equal 4 of 4; each kernel held against its plain version on
+            layer 0's operands (the DRS kernels at admission and refresh),
+            bf16 and f32, and timed as in phase 6, with its plan's path
+            printed (the serial paged
+            kernel for llama3.2's 3 query heads a kv head and phi3's head
+            dim 96).
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-each prints its seconds.
+then 6-9, 19, 21 and 22; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -457,11 +497,13 @@ def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
             row["shapes"] = [list(a.shape) for a in cap.args
                              if torch.is_tensor(a)]
             row["tol_bf16"] = [rtol, atol]
-            timed = {"": lambda: kernel(*args, **cap.kwargs),
-                     "plain_": lambda: plain(*args, **cap.kwargs),
-                     "library_": None if library is None
-                     else lambda: library(*args)}
-            for pre, fn in timed.items():
+            row["bound_ms"], row["bound_by"] = bound(
+                *cost(*args, **cap.kwargs), dtype)
+            fns = {"": lambda: kernel(*args, **cap.kwargs),
+                   "plain_": lambda: plain(*args, **cap.kwargs),
+                   "library_": None if library is None
+                   else lambda: library(*args)}
+            for pre, fn in fns.items():
                 if fn is None:
                     row[f"{pre}ms"] = row[f"{pre}span_ms"] = None
                     row[f"{pre}call_ms"] = None
@@ -470,8 +512,6 @@ def check_kernel(name, kernel, plain, cap, cost, library=None, keep=()):
                 row[f"{pre}span_ms"] = note["span_ms"]
                 row[f"{pre}call_ms"] = time_ms(fn)
                 row[f"{pre}timing"] = note
-            row["bound_ms"], row["bound_by"] = bound(
-                *cost(*args, **cap.kwargs), dtype)
         else:
             row["tol_f32"] = [rtol, atol]
     return row
@@ -556,8 +596,9 @@ def profile_serve(cfg, model, dsg, eng_kw):
 
 
 def smoke_streams(device, dsg_serving, cache_backend="paged",
-                  decode_chunk=1, sample=False, sharing=None):
-    """The smoke model's streams (f32) over 6 requests through 2 lanes:
+                  decode_chunk=1, sample=False, sharing=None, arch=ARCH):
+    """`arch`'s smoke model's streams (f32, DSG's per-row top-k threshold)
+    over 6 requests through 2 lanes:
     mixed lengths, or with `sharing` (a prefix length) 28-token prompts
     whose first `sharing` tokens are the same, in a 28-token bucket, served
     with prefix sharing on (28 = 3.5 pages of 8, so identical prompts share
@@ -569,7 +610,7 @@ def smoke_streams(device, dsg_serving, cache_backend="paged",
     from repro_torch.serving.scheduler import ServingEngine
     from repro_torch.serving.workload import (mixed_requests,
                                               shared_prefix_requests)
-    cfg = configs.get_smoke_config(ARCH)
+    cfg = configs.get_smoke_config(arch)
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(SEED)
     model = api.init_model(cfg, generator=gen, device="cpu")
@@ -995,19 +1036,26 @@ def solo_drive(eng, requests):
     return engine_stats(eng, dict(eng.done), time.perf_counter() - t0)
 
 
-def fixed_lane_streams(cfg, model, dsg, eng_kw, chunk):
-    """Phase 11: 4 requests whose prompts share one bucket (100-120 tokens,
-    bucket 128) with max_new 32, all admitted at step 0 into 4 lanes, so
-    the co-scheduling at chunk 1 and chunk `chunk` is the same."""
+def fixed_lanes(cfg, model, dsg, eng_kw, chunk, max_new=32):
+    """4 requests whose prompts share one bucket (100-120 tokens, bucket
+    128) with `max_new` tokens each, all admitted at step 0 into 4 lanes,
+    so the co-scheduling at chunk 1 and chunk `chunk` is the same:
+    (streams, engine, stats)."""
     from repro_torch.serving.scheduler import ServingEngine
     from repro_torch.serving.workload import mixed_requests, run_engine
     eng = ServingEngine(cfg, model, dsg, **dict(eng_kw, decode_chunk=chunk))
     reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 4,
-                          prompt_range=(100, 120), max_new_range=(32, 32))
+                          prompt_range=(100, 120),
+                          max_new_range=(max_new, max_new))
     stats = run_engine(eng, reqs)
     if stats["ok_requests"] != 4 or eng.admissions != 4:
         fail(f"the fixed-lane run at chunk {chunk} did not finish: {stats}")
-    return {u: list(r.output) for u, r in eng.done.items()}
+    return {u: list(r.output) for u, r in eng.done.items()}, eng, stats
+
+
+def fixed_lane_streams(cfg, model, dsg, eng_kw, chunk):
+    """Phase 11: `fixed_lanes`' streams, 32 new tokens a lane."""
+    return fixed_lanes(cfg, model, dsg, eng_kw, chunk)[0]
 
 
 # -- phase 20: the router ---------------------------------------------------
@@ -1782,6 +1830,361 @@ def paged_sweep(args, kwargs) -> dict:
     return {"plan": plan.splits, "ms_by_splits": by}
 
 
+# -- phases 21-22: the other decoder families at full width ----------------
+
+MOE_ARCH = "deepseek-moe-16b"
+DENSE_ARCHS = ("llama3.2-3b", "phi3-mini-3.8b", "mistral-nemo-12b")
+SMOKE_FAMILY_ARCHS = (MOE_ARCH, "llava-next-34b")
+
+
+def serve_kernels() -> dict:
+    """The four serve-path kernels: name -> (wrapper, its `ops` entry
+    point, plain version, cost, the paths the wrapper counts)."""
+    from repro_torch.kernels import drs_search, dsg_ffn, paged_attention
+    return {"paged_decode": (paged_attention.paged_decode,
+                             "paged_decode_attention",
+                             paged_attention.paged_decode_plain, paged_cost,
+                             ("split", "serial")),
+            "dsg_ffn_csr": (dsg_ffn.dsg_ffn_csr, "dsg_ffn_csr",
+                            dsg_ffn.dsg_ffn_csr_plain, csr_cost,
+                            ("union", "lanes")),
+            "drs_project": (drs_search.drs_project, "drs_project",
+                            drs_search.drs_project_plain, project_cost,
+                            ("gemv", "tc", "simt")),
+            "drs_scores": (drs_search.drs_scores, "drs_scores",
+                           drs_search.drs_scores_plain, scores_cost,
+                           ("gemv", "tc", "simt"))}
+
+
+# one PyTorch call that computes the same function as the kernel, where
+# there is one
+LIBRARY = {"drs_project": lambda x, r: x @ r.t()}
+
+
+def plan_path(name, args, kwargs) -> str:
+    """The path the plan of kernel `name` picks for one captured call."""
+    from repro_torch.kernels import drs_search
+    if name == "paged_decode":
+        return paged_plan(args, kwargs).path
+    if name == "dsg_ffn_csr":
+        return csr_plan(args, kwargs).path
+    if name == "drs_scores":
+        return scores_plan(args, kwargs).path
+    (m, d), k = args[0].shape, args[1].shape[0]
+    return drs_search.project_plan(m, k, d, args[0].dtype).path
+
+
+def traced(cfg, names, drive, lanes):
+    """drive() with the `ops` entry points of the kernels `names` wrapped
+    in Captures that tally each call's planned path and keep layer 0's
+    call of decode step CAPTURE_STEP (the decode kernels) or layer 0's
+    first call at admission and at a refresh, M = `lanes` (the DRS
+    kernels); the wrappers' counters are set to 0 just before and read
+    just after.  Fails unless every kernel launched, every launch took
+    the path its shape plans, and every capture was made.  Returns
+    (drive's result, launches, launches by path, captures, refresh
+    captures)."""
+    from repro_torch.kernels import ops
+    ks = serve_kernels()
+    caps, refresh, outer = {}, {}, {}
+    for name in names:
+        _, op, _, _, _ = ks[name]
+        drs = name.startswith("drs")
+        caps[name] = outer[name] = Capture(
+            getattr(ops, op), 0 if drs else cfg.n_layers * CAPTURE_STEP,
+            key=lambda a, kw, name=name: plan_path(name, a, kw))
+        if drs:
+            refresh[name] = outer[name] = Capture(
+                caps[name], 0, when=lambda a: a[0].shape[0] == lanes)
+        setattr(ops, op, outer[name])
+    try:
+        for name in names:
+            wrapper, _, _, _, ps = ks[name]
+            wrapper.launches = 0
+            for path in ps:
+                setattr(wrapper, f"launches_{path}", 0)
+        result = drive()
+        launches = {n: ks[n][0].launches for n in names}
+        by_path = {n: {p: getattr(ks[n][0], f"launches_{p}")
+                       for p in ks[n][4]} for n in names}
+    finally:
+        for name in names:
+            setattr(ops, ks[name][1], caps[name].fn)
+    for name in names:
+        planned = {p: caps[name].tally[p] for p in ks[name][4]}
+        if by_path[name] != planned or not launches[name]:
+            fail(f"{name} launched {by_path[name]} by path, its shapes plan "
+                 f"{planned}")
+        if caps[name].args is None or (name in refresh
+                                       and refresh[name].args is None):
+            fail(f"no call of {name} was captured")
+    return result, launches, by_path, caps, refresh
+
+
+def kernel_line(tag, name, row) -> str:
+    lib = ("" if row["library_ms"] is None else
+           f" library {row['library_ms']:.4f} ms,")
+    timed = (f" {row['ms']:.4f} ms on the device ({row['span_ms']:.4f} ms "
+             f"span), {row['call_ms']:.4f} ms a call, plain "
+             f"{row['plain_ms']:.4f} ms,{lib}")
+    return (f"[{tag}] {name} {row['shapes']}: path {row['path']},{timed} "
+            f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}; max abs "
+            f"err bf16 {row['max_abs_err']:.3g} f32 "
+            f"{row['max_abs_err_f32']:.3g}")
+
+
+def moe_phase(dev) -> dict:
+    """Phase 21: deepseek-moe-16b at full width in bf16 (28 layers, d 2048,
+    16 heads / 16 kv, 64 routed experts + 2 shared of 1408, top-6, vocab
+    102400) with random weights from a seeded torch.Generator and DSG as
+    the config sets it (mask mode in every expert and the shared experts,
+    gamma 0.5, shared threshold, block 128, k 128), paged (page 16), 4
+    slots, max_seq 512.  See the module docstring."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention
+    from repro_torch.models import api, transformer
+    from repro_torch.serving.scheduler import ServingEngine
+    from repro_torch.serving.workload import (mixed_requests, run_engine,
+                                              warmup_engine)
+    out = {}
+    pw = paged_attention.paged_decode
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    out.update(params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+               weights_gb=nbytes(model.parameters()) / 1e9,
+               dsg_gb=nbytes(dsg.values()) / 1e9,
+               init_s=time.perf_counter() - t0)
+    print(f"[moe] {MOE_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.moe_experts} + {cfg.moe_shared} experts of {cfg.moe_d_ff}, "
+          f"top-{cfg.moe_topk}, vocab {cfg.vocab}, {out['params_b']:.3f}B "
+          f"params = {out['weights_gb']:.3f} GB in {cfg.dtype}; DSG "
+          f"{sorted(dsg)} {out['dsg_gb']:.3f} GB ({cfg.dsg.threshold_mode} "
+          f"threshold, k {dsg['r'].shape[0]}); init {out['init_s']:.2f}s",
+          flush=True)
+    eng_kw = dict(n_slots=4, max_seq=512, prompt_bucket=256,
+                  cache_backend="paged", page_size=16)
+    kw8 = dict(eng_kw, decode_chunk=8)
+
+    # (a) 4 fixed lanes, eager chunk 1 against chunk 8 graphs, DSG on/off
+    t1 = time.perf_counter()
+    (eager, _, st1), launches, by_path, caps, _ = traced(
+        cfg, ("paged_decode",),
+        lambda: fixed_lanes(cfg, model, dsg, eng_kw, 1), 4)
+    want = cfg.n_layers * st1["steps"]
+    if launches["paged_decode"] != want or by_path["paged_decode"] != {
+            "split": want, "serial": 0}:
+        fail(f"moe: paged_decode launched {by_path['paged_decode']} in "
+             f"{st1['steps']} eager steps, expected {want}, all split")
+    graph, eng, st8 = fixed_lanes(cfg, model, dsg, eng_kw, 8)
+    replays = sum(eng.graphs.replays.values())
+    replayed = eng.graphs.launches(pw, "launches_split")
+    if not replays or replayed != cfg.n_layers * 8 * replays:
+        fail(f"moe: {replayed} replayed split launches in {replays} "
+             f"replays, expected {cfg.n_layers} x 8 x replays")
+    del eng
+    off1 = fixed_lanes(cfg, model, None, eng_kw, 1)[0]
+    off8 = fixed_lanes(cfg, model, None, eng_kw, 8)[0]
+    same = sum(eager[u] == graph[u] for u in eager)
+    same_off = sum(off1[u] == off8[u] for u in off1)
+    out["fixed_lanes"] = {"dsg_on_equal": same, "dsg_off_equal": same_off,
+                          "eager_steps": st1["steps"],
+                          "eager_tpot_p50_s": st1["tpot_p50_s"],
+                          "chunk8_tpot_p50_s": st8["tpot_p50_s"],
+                          "chunk8_replays": replays,
+                          "dsg_changes_streams": sum(
+                              eager[u] != off1[u] for u in eager)}
+    print(f"[moe] (a) 4 fixed lanes x 32 tokens: chunk-8 graphs equal eager "
+          f"chunk 1 in {same} of 4 (DSG on), {same_off} of 4 (DSG off); "
+          f"{replays} replays; TPOT p50 eager "
+          f"{1e3 * st1['tpot_p50_s']:.2f} ms, chunk 8 "
+          f"{1e3 * st8['tpot_p50_s']:.2f} ms (DSG on); "
+          f"{time.perf_counter() - t1:.2f}s", flush=True)
+    if same != 4 or same_off != 4:
+        fail(f"moe: fixed-lane bf16 streams of the chunk-8 graphs differ "
+             f"from the eager chunk-1 streams (DSG on {same} of 4, off "
+             f"{same_off} of 4)")
+
+    # (b) 8 mixed requests at chunk 8 through graphs; logits finite
+    t1 = time.perf_counter()
+    stats, launches_b, acct, _ = graph_serve(
+        cfg, model, dsg, kw8, {"paged_decode": pw},
+        mixed_requests(cfg.vocab, 8, seed=SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab, (4, 128), generator=gen, device=dev)
+    with torch.no_grad():
+        logits, _ = transformer.forward(model, dsg, cfg, toks,
+                                        last_only=True)
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail("moe: non-finite logits at full width")
+    out["mixed"] = dict(stats, graphs=acct["graphs_captured"],
+                        replays=acct["replays"],
+                        capture_s=acct["capture_s"],
+                        pool_bytes=acct["pool_bytes"],
+                        launches=launches_b)
+    print(serve_line("moe chunk8", stats) + f"; {acct['replays']} replays of "
+          f"{acct['graphs_captured']} graphs, capture {acct['capture_s']:.2f} "
+          f"s, graph pool {acct['pool_bytes'] / 1e6:.1f} MB; launches "
+          f"{launches_b}; {time.perf_counter() - t1:.2f}s", flush=True)
+
+    # (c) paged_decode against its plain version on layer 0's operands
+    row = check_kernel("paged_decode", pw, paged_attention.paged_decode_plain,
+                       caps["paged_decode"], paged_cost)
+    row.update(path=plan_path("paged_decode", caps["paged_decode"].args,
+                              caps["paged_decode"].kwargs),
+               launches=launches["paged_decode"],
+               launches_by_path=by_path["paged_decode"],
+               launches_chunk8=launches_b["paged_decode"])
+    out["paged_decode"] = row
+    print(kernel_line("moe", "paged_decode", row), flush=True)
+    del caps
+
+    # (e) the device's busy share over a profiled chunk-8 run, and one
+    # decode micro-step's device time against its byte bound
+    t1 = time.perf_counter()
+    counted = []
+    for _ in range(PROFILE_TRIES):
+        # a trace that drops events is taken again, as in profile_serve
+        eng = ServingEngine(cfg, model, dsg, **kw8)
+        warmup_engine(eng, cfg.vocab)
+        reqs = mixed_requests(cfg.vocab, 4, seed=SEED + 2,
+                              prompt_range=(64, 128), max_new_range=(24, 24))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = run_engine(eng, reqs)
+        b = busy(prof)
+        n_replays = sum(eng.graphs.replays.values())
+        split = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and kernel_id(e.name) == "paged_split_kernel")
+        counted.append((split, n_replays))
+        if b is not None and split == cfg.n_layers * 8 * n_replays:
+            break
+        del eng
+    else:
+        fail(f"moe: the device traces of the chunk-8 run never count "
+             f"{cfg.n_layers} x 8 x replays split paged kernels: (split "
+             f"kernels, replays) {counted}")
+    key = max(eng.graphs.replays, key=eng.graphs.replays.get)
+    replay = eng.graphs.graphs[key][0].replay
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            replay()
+        torch.cuda.synchronize()
+    kern_ns = sum(e.time_range.end - e.time_range.start
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    step_ms = kern_ns / 1e3 / 3 / 8
+    b_chunk = busy(prof)
+    event_ms = time_ms(replay) / 8
+    # bytes one micro-step must read: every weight but the embedding (4
+    # rows of it), all 64 experts of every layer included, as the
+    # reference's dispatch runs each expert's capacity slots whether a
+    # token took them or not, and the DSG buffers; the KV pages (under
+    # 0.05 GB at these depths) are left out
+    step_bytes = (nbytes(model.parameters()) - nbytes([model.embed])
+                  + nbytes(dsg.values()))
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    out["profile"] = dict(b, steps=st["steps"], replays=n_replays,
+                          tpot_p50_s=st["tpot_p50_s"], key=str(key),
+                          split_kernels=split)
+    out["micro_step"] = {"device_ms": step_ms, "event_ms": event_ms,
+                         "bound_ms": bound_ms, "bound_gb": step_bytes / 1e9,
+                         "gap_x": step_ms / bound_ms,
+                         "replay_busy_share": b_chunk["busy_share"],
+                         "by_kernel": b_chunk["by_kernel"]}
+    print(f"[moe] (e) device busy {b['busy_ms']:.3f} ms of a "
+          f"{b['window_ms']:.3f} ms window ({100 * b['busy_share']:.1f}%) "
+          f"over 4 x 24 tokens at chunk 8 ({n_replays} replays, {split} "
+          f"split paged kernels in the trace), "
+          f"{100 * b_chunk['busy_share']:.1f}% over 3 replays of a chunk "
+          f"alone; one micro-step "
+          f"{step_ms:.3f} ms of kernels ({event_ms:.3f} ms by events "
+          f"around a replay / 8) against its byte bound {bound_ms:.3f} ms "
+          f"({step_bytes / 1e9:.2f} GB at 3.35 TB/s): "
+          f"{step_ms / bound_ms:.2f}x; top kernels "
+          f"{[(k['name'][:40], round(k['ms'], 2)) for k in b['by_kernel'][:4]]}"
+          f"; {time.perf_counter() - t1:.2f}s", flush=True)
+    del eng, replay
+
+    # (d) peak allocated memory over the phase
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe] (d) peak allocated {out['peak_gb']:.3f} GB: weights "
+          f"{out['weights_gb']:.3f} GB, DSG {out['dsg_gb']:.3f} GB, KV "
+          f"{stats['cache_bytes'] / 1e9:.3f} GB, graph pool "
+          f"{acct['pool_bytes'] / 1e9:.3f} GB", flush=True)
+    return out
+
+
+def dense_config_phase(dev, arch) -> dict:
+    """Phase 22 for one dense config at full width in bf16, DSG serving on
+    (refresh 8), paged (page 16), 4 slots, max_seq 512: 4 fixed lanes x 16
+    new tokens at chunk 1 (eager, the four serve kernels traced) and chunk
+    8 (graphs), streams equal; each kernel held against its plain version
+    on layer 0's operands and timed, with the path its plan took."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serving.dsg_runtime import DSGServingConfig
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    eng_kw = dict(n_slots=4, max_seq=512, prompt_bucket=256,
+                  cache_backend="paged", page_size=16,
+                  dsg_serving=DSGServingConfig(refresh_interval=8))
+    names = tuple(serve_kernels())
+    (eager, _, st1), launches, by_path, caps, refresh = traced(
+        cfg, names, lambda: fixed_lanes(cfg, model, dsg, eng_kw, 1, 16), 4)
+    drs = cfg.n_layers * (st1["admissions"] + st1["refresh_steps"])
+    want = {"paged_decode": cfg.n_layers * st1["steps"],
+            "dsg_ffn_csr": cfg.n_layers * st1["steps"],
+            "drs_project": drs, "drs_scores": drs}
+    if launches != want:
+        fail(f"{arch}: the eager run launched {launches}, expected {want}")
+    graph, eng, _ = fixed_lanes(cfg, model, dsg, eng_kw, 8, 16)
+    replays = sum(eng.graphs.replays.values())
+    del eng
+    same = sum(eager[u] == graph[u] for u in eager)
+    out = {"d": cfg.d_model, "f": cfg.d_ff, "heads": cfg.n_heads,
+           "kv": cfg.n_kv, "head_dim": cfg.head_dim,
+           "streams_equal": same, "chunk8_replays": replays,
+           "launches": launches, "by_path": by_path, "kernels": {}}
+    print(f"[configs] {arch}: d {cfg.d_model}, F {cfg.d_ff} "
+          f"({cfg.d_ff // cfg.dsg.block} groups), {cfg.n_heads} heads / "
+          f"{cfg.n_kv} kv of {cfg.head_dim}, DSG k {dsg['r'].shape[0]}; 4 "
+          f"fixed lanes x 16 tokens: chunk-8 graphs equal eager chunk 1 in "
+          f"{same} of 4 ({replays} replays); launches by path {by_path}",
+          flush=True)
+    if same != 4:
+        fail(f"{arch}: fixed-lane bf16 streams of the chunk-8 graphs differ "
+             f"from the eager chunk-1 streams ({same} of 4)")
+    ks = serve_kernels()
+    for name in names:
+        wrapper, _, plain, cost, _ = ks[name]
+        for tag, cap in (("", caps[name]), ("refresh ", refresh.get(name))):
+            if cap is None:
+                continue
+            row = check_kernel(name, wrapper, plain, cap, cost,
+                               LIBRARY.get(name))
+            row["path"] = plan_path(name, cap.args, cap.kwargs)
+            out["kernels"][tag + name] = row
+            print(kernel_line(f"configs {arch}", tag + name, row),
+                  flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1789,8 +2192,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import (cuda_lib, drs_search, dsg_ffn, ops,
-                                     paged_attention)
+    from repro_torch.kernels import cuda_lib
     from repro_torch.models import api
     from repro_torch.serving.dsg_runtime import DSGServingConfig
     from repro_torch.serving.scheduler import ServingEngine
@@ -1827,55 +2229,14 @@ def main() -> int:
     # every prompt bucket and CUDA's one-time set-up outside the measured run
     eng = ServingEngine(cfg, model, dsg, **eng_kw)
     warmup_engine(eng, cfg.vocab)
-    kernels = {"paged_decode": (paged_attention.paged_decode,
-                                "paged_decode_attention"),
-               "dsg_ffn_csr": (dsg_ffn.dsg_ffn_csr, "dsg_ffn_csr"),
-               "drs_project": (drs_search.drs_project, "drs_project"),
-               "drs_scores": (drs_search.drs_scores, "drs_scores")}
+    kernels = serve_kernels()
     drs = ("drs_project", "drs_scores")
-    lanes = eng_kw["n_slots"]
-    captures, refresh = {}, {}
-
-    def project_path(args, kwargs=None):
-        (m, d), k = args[0].shape, args[1].shape[0]
-        return drs_search.project_plan(m, k, d, args[0].dtype).path
-
-    def scores_path(args, kwargs=None):
-        return scores_plan(args, kwargs or {}).path
-
-    def paged_path(args, kwargs):
-        return paged_plan(args, kwargs).path
-
-    def csr_path(args, kwargs):
-        return csr_plan(args, kwargs).path
-
-    paths = {"drs_project": (project_path, ("gemv", "tc", "simt")),
-             "drs_scores": (scores_path, ("gemv", "tc", "simt")),
-             "paged_decode": (paged_path, ("split", "serial")),
-             "dsg_ffn_csr": (csr_path, ("union", "lanes"))}
-    for name, (_, op) in kernels.items():
-        at = cfg.n_layers * CAPTURE_STEP if name not in drs else 0
-        captures[name] = Capture(getattr(ops, op), at, key=(
-            paths[name][0] if name in paths else None))
-        wrapped = captures[name]
-        if name in drs:
-            # the DRS kernels run at two shapes: M = the prompt bucket at
-            # admission (call 0) and M = the lane count at refresh steps
-            refresh[name] = wrapped = Capture(
-                captures[name], 0, when=lambda a: a[0].shape[0] == lanes)
-        setattr(ops, op, wrapped)
-    try:
-        for name, (wrapper, _) in kernels.items():
-            wrapper.launches = 0
-            for p in paths.get(name, (None, ()))[1]:
-                setattr(wrapper, f"launches_{p}", 0)
-        stats = run_engine(eng, mixed_requests(cfg.vocab, 8, seed=SEED))
-        launches = {n: w.launches for n, (w, _) in kernels.items()}
-        by_path = {n: {p: getattr(kernels[n][0], f"launches_{p}")
-                       for p in ps} for n, (_, ps) in paths.items()}
-    finally:
-        for name, (_, op) in kernels.items():
-            setattr(ops, op, captures[name].fn)
+    # the DRS kernels run at two shapes: M = the prompt bucket at admission
+    # and M = the lane count at refresh steps
+    stats, launches, by_path, captures, refresh = traced(
+        cfg, tuple(kernels),
+        lambda: run_engine(eng, mixed_requests(cfg.vocab, 8, seed=SEED)),
+        eng_kw["n_slots"])
     print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
           f"in {stats['wall_s']:.3f}s = {stats['tok_per_s']:.2f} tok/s "
           f"(decode {stats['decode_tok_per_s']:.2f} tok/s); latency p50 "
@@ -1899,33 +2260,23 @@ def main() -> int:
     print(f"[serve] launches {launches} (expected {want}); by path "
           f"{by_path}", flush=True)
     for name in kernels:
-        if launches[name] != want[name] or not launches[name]:
+        if launches[name] != want[name]:
             fail(f"{name} launched {launches[name]} times on the serve "
                  f"path, expected {want[name]}")
-        if captures[name].args is None:
-            fail(f"no call of {name} was captured")
     for name in drs:
         got = {"admission": launches[name] - refresh[name].n,
                "refresh": refresh[name].n}
-        if got != by_shape or refresh[name].args is None:
+        if got != by_shape:
             fail(f"{name} launched {got} times by shape, expected "
                  f"{by_shape}")
-    # each call took the path its shape plans: drs_project's admission
-    # shape the wgmma tiles and its refresh shape the GEMV; every paged
-    # step the split kernel and every CSR FFN step the union kernels
-    for name, (_, ps) in paths.items():
-        planned = {p: captures[name].tally[p] for p in ps}
-        if by_path[name] != planned:
-            fail(f"{name} launched {by_path[name]} by path on the serve "
-                 f"run, its shapes plan {planned}")
-    # every admission launch of the DRS kernels took the wgmma tiles and
-    # every refresh launch the GEMV
-    for name, plan_path in (("drs_project", project_path),
-                            ("drs_scores", scores_path)):
+    # every call took the path its shape plans (traced holds that); at this
+    # width every admission launch of the DRS kernels takes the wgmma
+    # tiles and every refresh launch the GEMV
+    for name in drs:
         for cap, path in ((captures[name], "tc"), (refresh[name], "gemv")):
-            if plan_path(cap.args, cap.kwargs) != path:
+            if plan_path(name, cap.args, cap.kwargs) != path:
                 fail(f"{name} at {list(cap.args[0].shape)} plans "
-                     f"{plan_path(cap.args, cap.kwargs)}, not {path}")
+                     f"{plan_path(name, cap.args, cap.kwargs)}, not {path}")
         want_paths = {"gemv": by_shape["refresh"],
                       "tc": by_shape["admission"], "simt": 0}
         if by_path[name] != want_paths:
@@ -1968,7 +2319,7 @@ def main() -> int:
     # replays, the dense backend, and both at smoke width against the CPU
     chunk = 8
     kw8 = dict(eng_kw, decode_chunk=chunk)
-    wrappers = {n: w for n, (w, _) in kernels.items()}
+    wrappers = {n: v[0] for n, v in kernels.items()}
     t0 = time.perf_counter()
     reqs3 = lambda: mixed_requests(cfg.vocab, 8, seed=SEED)  # noqa: E731
     stats8, launches8, acct8, streams8 = graph_serve(
@@ -2160,6 +2511,10 @@ def main() -> int:
                ("dense", chunk, None, dict(sample=True)),
                ("paged", 1, None, dict(sharing=28)),
                ("paged", chunk, on8, dict(sample=True, sharing=20))]
+    # the MoE and VLM smoke models, DSG on (mask mode, no serving runtime)
+    combos += [(backend, c, None, dict(arch=arch))
+               for arch in SMOKE_FAMILY_ARCHS for backend in ("dense", "paged")
+               for c in (1, chunk)]
     for backend, c, scfg, extra in combos:
         on_card = smoke_streams(dev, scfg, backend, c, **extra)
         if on_card != smoke_streams(torch.device("cpu"), scfg, backend, c,
@@ -2171,7 +2526,9 @@ def main() -> int:
           f"serving off, on}} greedy, sampling on (paged chunk 1 DSG on, "
           f"dense chunk {chunk}), prefix sharing on (paged chunk 1 on "
           f"identical prompts, paged chunk {chunk} DSG on sampled on a "
-          f"20-token prefix); {time.perf_counter() - t0:.2f}s", flush=True)
+          f"20-token prefix), and {' and '.join(SMOKE_FAMILY_ARCHS)} over "
+          f"{{dense, paged}} x {{chunk 1, {chunk}}}; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # 20. the router: 2 replicas behind one front end, each executor,
     # failover, and the EMA threshold
@@ -2184,24 +2541,19 @@ def main() -> int:
 
     # 6. kernels against their plain versions
     t0 = time.perf_counter()
-    specs = [
-        ("paged_decode", paged_attention.paged_decode,
-         paged_attention.paged_decode_plain, paged_cost, None,
-         "src/repro_torch/csrc/paged_attention.cu",
-         "src/repro/kernels/paged_attention.py:129"),
-        ("dsg_ffn_csr", dsg_ffn.dsg_ffn_csr, dsg_ffn.dsg_ffn_csr_plain,
-         csr_cost, None, "src/repro_torch/csrc/dsg_ffn.cu",
-         "src/repro/kernels/dsg_ffn.py:120"),
-        ("drs_project", drs_search.drs_project, drs_search.drs_project_plain,
-         project_cost, lambda x, r: torch.matmul(x, r.t()),
-         "src/repro_torch/csrc/drs_search.cu",
-         "src/repro/kernels/drs_search.py:29"),
-        ("drs_scores", drs_search.drs_scores, drs_search.drs_scores_plain,
-         scores_cost, None, "src/repro_torch/csrc/drs_search.cu",
-         "src/repro/kernels/drs_search.py:56"),
-    ]
+    origin = {
+        "paged_decode": ("src/repro_torch/csrc/paged_attention.cu",
+                         "src/repro/kernels/paged_attention.py:129"),
+        "dsg_ffn_csr": ("src/repro_torch/csrc/dsg_ffn.cu",
+                        "src/repro/kernels/dsg_ffn.py:120"),
+        "drs_project": ("src/repro_torch/csrc/drs_search.cu",
+                        "src/repro/kernels/drs_search.py:29"),
+        "drs_scores": ("src/repro_torch/csrc/drs_search.cu",
+                       "src/repro/kernels/drs_search.py:56")}
     rows = []
-    for name, kernel, plain, cost, library, source, replaces in specs:
+    for name, (kernel, _, plain, cost, _) in kernels.items():
+        source, replaces = origin[name]
+        library = LIBRARY.get(name)
         row = check_kernel(name, kernel, plain, captures[name], cost,
                            library)
         shapes = {"": row}
@@ -2212,8 +2564,8 @@ def main() -> int:
                              library), launches=by_shape["refresh"])
         if name == "drs_project":
             row["launches_by_path"] = by_path[name]
-            row["path"] = project_path(captures[name].args)
-            row["refresh"]["path"] = project_path(refresh[name].args)
+            row["path"] = plan_path(name, captures[name].args, {})
+            row["refresh"]["path"] = plan_path(name, refresh[name].args, {})
         if name == "drs_scores":
             row["launches_by_path"] = by_path[name]
             for r, cap in ((row, captures[name]),
@@ -2306,6 +2658,36 @@ def main() -> int:
     trained = train_phase(dev, wrappers)
     print("[train] stats " + json.dumps(trained), flush=True)
     print(f"[phase 19] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 21. deepseek-moe-16b at full width, on memory phase 19 gave back
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = moe_phase(dev)
+    print("[moe] stats " + json.dumps(moe, default=str), flush=True)
+    print(f"[phase 21] {time.perf_counter() - t0:.2f}s", flush=True)
+    by_name = {r["name"]: r for r in rows}
+    by_name["paged_decode"]["moe"] = moe["paged_decode"]
+    by_name["paged_decode"]["launches_by_phase"]["moe"] = \
+        moe["paged_decode"]["launches"] + moe["paged_decode"][
+            "launches_chunk8"]
+
+    # 22. the three other dense configs at full width, one at a time
+    t0 = time.perf_counter()
+    dense_cfgs = {}
+    for arch in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_cfgs[arch] = dense_config_phase(dev, arch)
+        for name, r in dense_cfgs[arch]["kernels"].items():
+            kname = name.split()[-1]
+            by_name[kname].setdefault("configs", {})[f"{arch} {name}"] = r
+        for kname, n in dense_cfgs[arch]["launches"].items():
+            by_name[kname]["launches_by_phase"][arch] = n
+    print("[configs] stats " + json.dumps(
+        {a: {k: v for k, v in o.items() if k != "kernels"}
+         for a, o in dense_cfgs.items()}), flush=True)
+    print(f"[phase 22] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

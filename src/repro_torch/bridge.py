@@ -5,7 +5,8 @@ replay, so a parity test builds them there, converts every leaf to numpy
 (`jax.tree.map(np.asarray, params)`) and hands the nested dicts here.  The
 reference stacks per-layer leaves (L, ...) for lax.scan; the port keeps
 one module per layer, so the stacks are split along their first axis.  The
-DSG state keeps its stacked fw (L, k, F) in both packages.
+DSG state keeps its stacked leaves (fw (L, k, F), or an MoE's fw_experts
+(L, E, k, F_e) and fw_shared (L, k, n_shared · F_e)) in both packages.
 
 The other way, `state_tree` lays the trainer's state (model, DSG state,
 AdamW state, error feedback) out as the reference's tree: per-layer leaves
@@ -26,6 +27,7 @@ from repro_torch.core.dsg_linear import DSGConfig, SwiGLU
 from repro_torch.models.api import require_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import RMSNorm
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, Transformer, set_trainable
 
 
@@ -49,16 +51,26 @@ def model_from_jax(params: dict, cfg, device="cuda",
     def take(leaf, l):
         return tensor(np.asarray(leaf)[l], device)
 
+    def swiglu(f, l):
+        return SwiGLU(take(f["w_gate"], l), take(f["w_up"], l),
+                      take(f["w_down"], l))
+
+    def ffn(l):
+        if "ffn" in lay:
+            return swiglu(lay["ffn"], l)
+        m = lay["moe"]          # the router stays f32, as the reference's
+        return MoE(take(m["router"], l), take(m["w_gate"], l),
+                   take(m["w_up"], l), take(m["w_down"], l),
+                   swiglu(m["shared"], l) if "shared" in m else None)
+
     layers = []
     for l in range(cfg.n_layers):
-        a, f = lay["attn"], lay["ffn"]
+        a = lay["attn"]
         layers.append(Block(
             RMSNorm(take(lay["ln_attn"]["scale"], l)),
             Attention(take(a["wq"], l), take(a["wk"], l), take(a["wv"], l),
                       take(a["wo"], l)),
-            RMSNorm(take(lay["ln_ffn"]["scale"], l)),
-            SwiGLU(take(f["w_gate"], l), take(f["w_up"], l),
-                   take(f["w_down"], l))))
+            RMSNorm(take(lay["ln_ffn"]["scale"], l)), ffn(l)))
     lm_head = params.get("lm_head")
     model = Transformer(tensor(params["embed"], device), layers,
                         RMSNorm(tensor(params["ln_final"]["scale"], device)),
@@ -77,12 +89,13 @@ def config_from_jax(ref_cfg) -> ModelConfig:
 
 
 def dsg_from_jax(dsg: Optional[dict], device="cuda") -> Optional[dict]:
-    """A `repro.models.transformer.init_dsg` state -> {'r', 'fw'}, on the
-    card unless `device` says otherwise."""
+    """A `repro.models.transformer.init_dsg` state -> the same leaves ('r'
+    and 'fw', or 'fw_experts' and 'fw_shared') as tensors, on the card
+    unless `device` says otherwise."""
     device = require_device(device)
     if dsg is None:
         return None
-    return {"r": tensor(dsg["r"], device), "fw": tensor(dsg["fw"], device)}
+    return {k: tensor(v, device) for k, v in dsg.items()}
 
 
 def _put(tree: dict, parts, leaf) -> None:
@@ -141,8 +154,7 @@ def state_tree(model: Transformer, dsg: Optional[dict], opt: dict,
     gradient compression, as the reference's pytree has no leaves there)."""
     st = {"params": to_reference_tree(dict(model.named_parameters()))}
     if dsg is not None:
-        st["dsg"] = {"r": dsg["r"].detach().cpu(),
-                     "fw": dsg["fw"].detach().cpu()}
+        st["dsg"] = {k: v.detach().cpu() for k, v in dsg.items()}
     st["opt"] = {"step": torch.tensor(opt["step"], dtype=torch.int32),
                  "m": to_reference_tree(opt["m"]),
                  "v": to_reference_tree(opt["v"])}
@@ -176,8 +188,8 @@ def load_state_tree(tree: dict, model: Transformer, dsg: Optional[dict],
         for n, t in from_reference_tree(tree["params"], names).items():
             model.get_parameter(n).copy_(t)
         if dsg is not None:
-            dsg["r"].copy_(_as_tensor(tree["dsg"]["r"]))
-            dsg["fw"].copy_(_as_tensor(tree["dsg"]["fw"]))
+            for k, v in dsg.items():
+                v.copy_(_as_tensor(tree["dsg"][k]))
         opt["step"] = int(tree["opt"]["step"])
         for key in ("m", "v", "master"):
             if key in opt:

@@ -1,16 +1,33 @@
 """Architecture registry: --arch <id> resolves here.
 
-Only internlm2-1.8b is ported so far; ROADMAP.md lists the other archs."""
-from repro_torch.configs import internlm2_1_8b
-from repro_torch.configs.base import ModelConfig
+The seven archs of the decoder families (dense, moe, vlm) are ported; the
+recurrent, hybrid and encoder-decoder archs (xlstm-350m, zamba2-7b,
+whisper-large-v3) are not yet (ROADMAP.md queue 1 item 8)."""
+from repro_torch.configs import (
+    deepseek_moe_16b,
+    internlm2_1_8b,
+    llama3_2_3b,
+    llama4_scout_17b_a16e,
+    llava_next_34b,
+    mistral_nemo_12b,
+    phi3_mini_3_8b,
+)
+from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
+                                      ModelConfig, ShapeConfig,
+                                      shape_by_name)
 
-ARCHS = {m.ARCH_ID: m for m in (internlm2_1_8b,)}
+_MODULES = (
+    mistral_nemo_12b, internlm2_1_8b, llama3_2_3b, phi3_mini_3_8b,
+    deepseek_moe_16b, llama4_scout_17b_a16e, llava_next_34b,
+)
+
+ARCHS = {m.ARCH_ID: m for m in _MODULES}
 
 
 def _arch(arch_id: str):
     if arch_id not in ARCHS:
         raise KeyError(f"arch {arch_id!r} is not ported yet (ported: "
-                       f"{sorted(ARCHS)}; see ROADMAP.md)")
+                       f"{sorted(ARCHS)}; see ROADMAP.md queue 1 item 8)")
     return ARCHS[arch_id]
 
 
@@ -20,3 +37,14 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _arch(arch_id).smoke_config()
+
+
+# long_500k requires sub-quadratic attention: only the recurrent/hybrid
+# archs run it; pure full-attention archs record a skip.
+LONG_CONTEXT_ARCHS = ("xlstm-350m", "zamba2-7b")
+
+
+def cell_is_runnable(arch_id: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return arch_id in LONG_CONTEXT_ARCHS
+    return True

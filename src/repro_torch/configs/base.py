@@ -1,13 +1,14 @@
 """Model config schema (the port's copy of `repro.configs.base.ModelConfig`).
 
 Every field of the reference is kept so a config compares field for field
-with its JAX counterpart.  The port runs the dense decoder family; fields
-of the other families are carried as data only.
+with its JAX counterpart.  The port runs the decoder families (dense, moe,
+vlm); fields of the other families are carried as data only.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
 
 from repro_torch.core.dsg_linear import DSGConfig
 
@@ -77,3 +78,31 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+# Smoke-test shape used by per-arch CPU smoke tests.
+SMOKE_SHAPE = ShapeConfig("smoke", 32, 2, "train")

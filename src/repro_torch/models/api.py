@@ -1,4 +1,5 @@
-"""Model API used by the serving engine and the launcher (dense family).
+"""Model API used by the serving engine, the launchers and the tests: the
+decoder families (dense, moe, vlm) of `repro.models.api`.
 
   init_model(cfg, generator=, device=)          -> Transformer
   init_dsg(model, cfg, generator=, device=)     -> DSG state or None
@@ -7,20 +8,26 @@
   make_cache(cfg, batch, max_seq, device=)      -> dense {'k', 'v'} cache
   prefill(model, dsg, cfg, inputs, cache)       -> (last_logits, cache)
   decode_step(model, dsg, cfg, token, cache, pos) -> (logits, cache)
+  make_inputs(cfg, shape, concrete=, seed=, device=) -> batch dict
 
 Serving picks the cache layout through `repro_torch.serving.kv_cache` and
 passes the paged view into decode_step.  Caches are updated in place.
-The entry points that make tensors put them on the card unless the caller
-asks for the CPU (`device="cpu"`); with no card they raise.
+The other families (xlstm, zamba, encdec) raise NotImplementedError,
+naming ROADMAP.md.  The entry points that make tensors put them on the
+card unless the caller asks for the CPU (`device="cpu"`); with no card
+they raise.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
+
+DECODER_FAMILIES = transformer.DECODER_FAMILIES
 
 
 def require_device(device) -> torch.device:
@@ -33,37 +40,41 @@ def require_device(device) -> torch.device:
     return device
 
 
+def _require_decoder(cfg: ModelConfig, verb: str) -> None:
+    if cfg.family not in DECODER_FAMILIES:
+        raise NotImplementedError(
+            f"{verb} for the {cfg.family!r} family is not ported (the port "
+            f"runs the decoder families {DECODER_FAMILIES}; ROADMAP.md "
+            f"queue 1 item 8)")
+
+
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device="cuda"):
+    _require_decoder(cfg, "init_model")
     return transformer.init_model(cfg, generator=generator,
                                   device=require_device(device))
 
 
 def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
              device="cuda") -> Optional[dict]:
+    _require_decoder(cfg, "init_dsg")
     return transformer.init_dsg(model, cfg, generator=generator,
                                 device=require_device(device))
 
 
-def _require_dense(cfg: ModelConfig, verb: str) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{verb} for the {cfg.family!r} family is not ported (the port "
-            f"runs the dense family; ROADMAP.md queue 1 item 8)")
-
-
 def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
-    _require_dense(cfg, "refresh_dsg")
+    _require_decoder(cfg, "refresh_dsg")
     return transformer.refresh_dsg(dsg, model, cfg)
 
 
 def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    _require_dense(cfg, "train_loss")
+    _require_decoder(cfg, "train_loss")
     return transformer.train_loss(model, dsg, cfg, batch)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
+    _require_decoder(cfg, "make_cache")
     return transformer.init_cache(cfg, batch, max_seq,
                                   dtype or transformer.torch_dtype(cfg),
                                   require_device(device))
@@ -71,13 +82,95 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
             collect_drs_scores: bool = False):
+    _require_decoder(cfg, "prefill")
     return transformer.prefill(model, dsg, cfg, inputs["tokens"], cache,
+                               prefix_embeds=inputs.get("prefix_embeds"),
                                collect_drs_scores=collect_drs_scores)
 
 
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
                 live_pages=None, ffn_csr=None,
                 collect_drs_scores: bool = False):
+    _require_decoder(cfg, "decode_step")
     return transformer.decode_step(model, dsg, cfg, token, cache, pos,
                                    live_pages=live_pages, ffn_csr=ffn_csr,
                                    collect_drs_scores=collect_drs_scores)
+
+
+# ---------------------------------------------------------------------------
+# per-slot cache surgery: deprecated thin wrappers, as in the reference.
+# The engine drives `serving.kv_cache` backends instead; these take raw
+# dense cache dicts whose leaves carry the batch on axis 1 (L, B, ...).
+# ---------------------------------------------------------------------------
+
+def make_slot_cache(cfg: ModelConfig, max_seq: int, dtype=None,
+                    device="cuda"):
+    """Deprecated: a 1-lane dense cache for solo prompt prefill, the same
+    as ``make_cache(cfg, 1, max_seq)``."""
+    return make_cache(cfg, 1, max_seq, dtype, device=device)
+
+
+def prefill_slot(model, dsg, cfg: ModelConfig, tokens, lane_cache):
+    """Deprecated: prefill one prompt lane, tokens (1, P) -> (last_logits
+    (1, V), the filled 1-lane cache); ``prefill`` with a {"tokens": ...}
+    batch."""
+    return prefill(model, dsg, cfg, {"tokens": tokens}, lane_cache)
+
+
+def merge_slot_cache(cache, lane_cache, slot):
+    """Deprecated: copy a 1-lane cache into lane `slot` of a batched dense
+    cache, in place (`serving.kv_cache.dense_merge`), and return it."""
+    from repro_torch.serving.kv_cache import dense_merge
+    dense_merge(cache, lane_cache, slot)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# input construction
+# ---------------------------------------------------------------------------
+
+def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
+                concrete: bool = False, seed: int = 0,
+                device="cuda") -> dict:
+    """The batch dict for a shape cell, as the reference's: kind 'train'
+    {'tokens', 'labels'}, 'prefill' {'tokens'}, 'decode' {'token'}; a VLM
+    adds 'prefix_embeds' (B, P, d) to train and prefill, with P =
+    min(vision_prefix, max(seq_len // 4, 1)) cut from the text.  With
+    `concrete` the arrays are the reference's: int32 tokens from
+    np.random.default_rng(seed) and standard-normal embeddings from
+    default_rng(seed + 1), each array drawn from a fresh generator; else
+    shape-only tensors on the meta device."""
+    _require_decoder(cfg, "make_inputs")
+    b, s = shape.global_batch, shape.seq_len
+    dt = transformer.torch_dtype(cfg)
+    device = require_device(device) if concrete else torch.device("meta")
+
+    def tok(shp):
+        if concrete:
+            rng = np.random.default_rng(seed)
+            return torch.from_numpy(rng.integers(
+                0, cfg.vocab, shp, dtype=np.int32)).to(device)
+        return torch.empty(shp, dtype=torch.int32, device=device)
+
+    def emb(shp):
+        if concrete:
+            rng = np.random.default_rng(seed + 1)
+            return torch.from_numpy(rng.standard_normal(shp)).to(
+                device=device, dtype=dt)
+        return torch.empty(shp, dtype=dt, device=device)
+
+    if cfg.family == "vlm":
+        p = min(cfg.vision_prefix, max(s // 4, 1))
+        st = s - p
+        if shape.kind == "train":
+            return {"prefix_embeds": emb((b, p, cfg.d_model)),
+                    "tokens": tok((b, st)), "labels": tok((b, st))}
+        if shape.kind == "prefill":
+            return {"prefix_embeds": emb((b, p, cfg.d_model)),
+                    "tokens": tok((b, st))}
+        return {"token": tok((b, 1))}
+    if shape.kind == "train":
+        return {"tokens": tok((b, s)), "labels": tok((b, s))}
+    if shape.kind == "prefill":
+        return {"tokens": tok((b, s))}
+    return {"token": tok((b, 1))}

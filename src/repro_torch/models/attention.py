@@ -1,4 +1,5 @@
-"""Attention: GQA + RoPE for prompt prefill and paged per-lane decode.
+"""Attention: GQA + RoPE for prompt prefill and paged per-lane decode,
+with a chunked online-softmax path for long prompts.
 
 Weights keep the reference layout: wq (d, H, D), wk/wv (d, Kv, D),
 wo (H, D, d).  Two cache kinds reach `self_attention`:
@@ -97,6 +98,52 @@ def attend_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                   window: int, q_chunk: int = 1024,
+                   kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over (q_chunk, kv_chunk) tiles, in f32,
+    each query chunk's running max, sum and output carried across the key
+    chunks in order (the reference's double lax.scan, in plain PyTorch as
+    the reference's is plain XLA).  Keeps the live score tile at (B, H,
+    q_chunk, kv_chunk), for prompts whose (S, T) scores cannot exist.
+    q (B, S, H, D), k/v (B, T, H, D); positions (S,) and (T,)."""
+    b, s_len, h, d = q.shape
+    t_len = k.shape[1]
+    q_chunk = min(q_chunk, s_len)
+    kv_chunk = min(kv_chunk, t_len)
+    nq, nk = s_len // q_chunk, t_len // kv_chunk
+    if nq * q_chunk != s_len or nk * kv_chunk != t_len:
+        raise ValueError(f"chunking must tile exactly: {s_len}/{q_chunk}, "
+                         f"{t_len}/{kv_chunk}")
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for i in range(nq):
+        q_i = q[:, i * q_chunk:(i + 1) * q_chunk].float()
+        qpos_i = q_pos[i * q_chunk:(i + 1) * q_chunk]
+        m_run = torch.full((b, h, q_chunk), NEG, device=q.device)
+        l_run = torch.zeros((b, h, q_chunk), device=q.device)
+        acc = torch.zeros((b, h, q_chunk, d), device=q.device)
+        for j in range(nk):
+            sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            sc = torch.einsum("bqhd,bkhd->bhqk", q_i, k[:, sl].float()) * scale
+            msk = _mask(qpos_i, kv_pos[sl], causal, window)[None, None]
+            sc = torch.where(msk, sc, NEG)
+            m_new = torch.maximum(m_run, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None]) * msk
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, v[:, sl].float())
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-20)[..., None]
+        outs.append(out.transpose(1, 2))                  # (b, q_chunk, h, d)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+CHUNK_THRESHOLD = 1 << 24   # S*T above which the chunked path is used
+
+
 def _check_paged_kernel(mode: str, device: torch.device) -> None:
     """Both modes run `ops.paged_decode_attention`, where the device decides:
     "auto" takes the kernel for CUDA tensors and its plain version for CPU
@@ -177,8 +224,21 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         k, v = cache["k"][:, :end], cache["v"][:, :end]
         kv_pos = torch.arange(end, device=x.device)
 
-    o = attend_direct(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads),
-                      q_pos, kv_pos, causal, window, bf16_scores=bf16_scores)
+    # the reference attends a prefill over the whole cache (Smax keys, the
+    # ones past the prompt masked), and switches to the chunked path when
+    # S * Smax exceeds CHUNK_THRESHOLD: the same switch, on the same keys
+    # (per-lane decode, q_pos 2-D, is one token and never needs it)
+    t_ref = k.shape[1] if cache is None else cache["k"].shape[1]
+    if s * t_ref > CHUNK_THRESHOLD and q_pos.ndim == 1:
+        if cache is not None:
+            k, v = cache["k"], cache["v"]
+            kv_pos = torch.arange(k.shape[1], device=x.device)
+        o = attend_chunked(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads),
+                           q_pos, kv_pos, causal, window)
+    else:
+        o = attend_direct(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads),
+                          q_pos, kv_pos, causal, window,
+                          bf16_scores=bf16_scores)
     out = _out(o, p.wo)
     if cache is None:
         return out, {"k": k_new, "v": v_new}

@@ -1,10 +1,15 @@
-"""Decoder-only transformer (dense family): an nn.ModuleList of pre-norm
-blocks run by a Python loop over layers, where the reference scans stacked
-layer leaves with lax.scan.
+"""Decoder-only transformer (dense, MoE and VLM families): an
+nn.ModuleList of pre-norm blocks run by a Python loop over layers, where
+the reference scans stacked layer leaves with lax.scan.  A block's FFN is
+a SwiGLU (`ffn`) or, in the MoE family, a mixture of experts (`moe`,
+`models/moe.py`); the VLM family prepends stub patch embeddings
+(`prefix_embeds`) to the token embeddings.
 
 The DSG state is a dict: one shared projection R (k, d) and the per-layer
-projected search weights fw (L, k, F), recomputed from the current gate
-weights by `refresh_dsg` (the training loop's f(W) refresh).
+projected search weights, recomputed from the current gate weights by
+`refresh_dsg` (the training loop's f(W) refresh): fw (L, k, F) for a
+SwiGLU, or fw_experts (L, E, k, F_e) and, with shared experts, fw_shared
+(L, k, n_shared · F_e) for an MoE.
 
 Weights are built with requires_grad off; the trainer turns it on for the
 model it owns (`set_trainable`).  The serving entry points (`prefill`,
@@ -26,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dsg_linear as dl
 from repro_torch.core import projection
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import RMSNorm, embed_init, norm_init
 
 
@@ -34,13 +40,19 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
+    """One pre-norm block; `ffn` is a SwiGLU, held as `ffn`, or an MoE,
+    held as `moe` (the reference's leaf names)."""
+
     def __init__(self, ln_attn: RMSNorm, attn_p: attn.Attention,
-                 ln_ffn: RMSNorm, ffn: dl.SwiGLU):
+                 ln_ffn: RMSNorm, ffn):
         super().__init__()
         self.ln_attn = ln_attn
         self.attn = attn_p
         self.ln_ffn = ln_ffn
-        self.ffn = ffn
+        if isinstance(ffn, moe_mod.MoE):
+            self.moe = ffn
+        else:
+            self.ffn = ffn
 
 
 class Transformer(nn.Module):
@@ -61,11 +73,23 @@ def set_trainable(model: Transformer, flag: bool = True) -> Transformer:
     return model
 
 
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+    if (cfg.family not in DECODER_FAMILIES or cfg.norm != "rmsnorm"
+            or cfg.act != "swiglu"):
         raise NotImplementedError(
-            f"the port runs the dense rmsnorm/swiglu family only, not "
-            f"{cfg.family}/{cfg.norm}/{cfg.act} (see ROADMAP.md)")
+            f"the port's decoder runs the rmsnorm/swiglu decoder families "
+            f"{DECODER_FAMILIES}, not {cfg.family}/{cfg.norm}/{cfg.act} "
+            f"(ROADMAP.md queue 1 item 8)")
+
+
+def _init_ffn(cfg: ModelConfig, kw: dict):
+    if cfg.is_moe:
+        return moe_mod.init_moe(cfg.d_model, cfg.moe_experts, cfg.moe_d_ff,
+                                cfg.moe_shared, **kw)
+    return dl.init_swiglu(cfg.d_model, cfg.d_ff, **kw)
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
@@ -79,7 +103,7 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                     attn.init_attention(cfg.d_model, cfg.n_heads, cfg.n_kv,
                                         cfg.head_dim, **kw),
                     norm_init(cfg.d_model, dtype=dt, device=device),
-                    dl.init_swiglu(cfg.d_model, cfg.d_ff, **kw))
+                    _init_ffn(cfg, kw))
               for _ in range(cfg.n_layers)]
     lm_head = None
     if not cfg.tie_embeddings:
@@ -94,10 +118,12 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 def init_dsg(model: Transformer, cfg: ModelConfig, *,
              generator: torch.Generator, device=None) -> Optional[dict]:
     """DSG buffers: shared R (k, d) and per-layer f(W) = R @ w_gate,
-    stacked (L, k, F)."""
+    stacked over layers (for an MoE, per expert; k from the expert
+    width)."""
     if not cfg.dsg.enabled:
         return None
-    k = dl.proj_dim(cfg.d_model, cfg.d_ff, cfg.dsg)
+    k = dl.proj_dim(cfg.d_model, cfg.moe_d_ff if cfg.is_moe else cfg.d_ff,
+                    cfg.dsg)
     r = projection.make_projection(k, cfg.d_model, generator=generator,
                                    dtype=torch_dtype(cfg), device=device)
     return refresh_dsg({"r": r}, model, cfg)
@@ -111,9 +137,50 @@ def refresh_dsg(dsg: Optional[dict], model: Transformer,
         return None
     r = dsg["r"]
     with torch.no_grad():
-        fw = torch.stack([r @ dl.search_weight(blk.ffn)
-                          for blk in model.layers])
-    return {"r": r, "fw": fw}
+        if not cfg.is_moe:
+            return {"r": r, "fw": torch.stack(
+                [r @ dl.search_weight(blk.ffn) for blk in model.layers])}
+        out = {"r": r, "fw_experts": torch.stack(
+            [torch.matmul(r, blk.moe.w_gate) for blk in model.layers])}
+        if model.layers[0].moe.shared is not None:
+            out["fw_shared"] = torch.stack(
+                [r @ dl.search_weight(blk.moe.shared)
+                 for blk in model.layers])
+        return out
+
+
+def _layer_dsg(dsg: Optional[dict], l: int) -> Optional[dict]:
+    """Layer l's slice of the per-layer DSG leaves (R stays shared)."""
+    if dsg is None:
+        return None
+    return {k: v[l] for k, v in dsg.items() if k != "r"}
+
+
+def _ffn_apply(blk: Block, h, cfg: ModelConfig, r, dsg_l, csr_l,
+               aux_kind):
+    """FFN or MoE with DSG; returns (y, aux or None).  csr_l: this layer's
+    group-CSR selection (idx (B, K), counts (B,)) from the serving DSG
+    runtime, which targets the SwiGLU FFN only."""
+    if csr_l is not None:
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "group-CSR serving selection targets the dense-FFN "
+                "family; MoE experts are already conditional compute")
+        return dl.swiglu_csr(blk.ffn, h, csr_l[0], csr_l[1],
+                             block=cfg.dsg.block,
+                             apply=cfg.dsg_ffn_apply), None
+    if cfg.is_moe:
+        st = None
+        if dsg_l is not None:
+            st = {"r": r, "fw_experts": dsg_l["fw_experts"]}
+            if "fw_shared" in dsg_l:
+                st["shared"] = {"r": r, "fw": dsg_l["fw_shared"]}
+        return moe_mod.moe_ffn(
+            blk.moe, h, n_experts=cfg.moe_experts, top_k=cfg.moe_topk,
+            capacity_factor=cfg.moe_capacity_factor, dsg=cfg.dsg,
+            dsg_state=st, aux_kind=aux_kind)
+    st = {"r": r, "fw": dsg_l["fw"]} if dsg_l is not None else None
+    return dl.swiglu_ffn(blk.ffn, h, st, cfg.dsg), None
 
 
 def _drs_scores(h: torch.Tensor, r: torch.Tensor, fw: torch.Tensor,
@@ -129,7 +196,8 @@ def _drs_scores(h: torch.Tensor, r: torch.Tensor, fw: torch.Tensor,
 
 
 def _block(blk: Block, x, cfg: ModelConfig, q_pos, cache_l, cache_pos,
-           page_table, live_pages, r, fw_l, csr_l, collect_scores: bool):
+           page_table, live_pages, r, dsg_l, csr_l, collect_scores: bool,
+           aux_kind=None):
     h = blk.ln_attn(x)
     a, _ = attn.self_attention(
         blk.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
@@ -139,23 +207,24 @@ def _block(blk: Block, x, cfg: ModelConfig, q_pos, cache_l, cache_pos,
         paged_kernel=cfg.paged_attn_kernel, bf16_scores=cfg.attn_bf16_scores)
     x = x + a
     h = blk.ln_ffn(x)
-    scores = _drs_scores(h, r, fw_l, cfg) if collect_scores else None
-    if csr_l is not None:
-        f = dl.swiglu_csr(blk.ffn, h, csr_l[0], csr_l[1], block=cfg.dsg.block,
-                          apply=cfg.dsg_ffn_apply)
-    else:
-        st = {"r": r, "fw": fw_l} if fw_l is not None else None
-        f = dl.swiglu_ffn(blk.ffn, h, st, cfg.dsg)
-    return x + f, scores
+    scores = _drs_scores(h, r, dsg_l["fw"], cfg) if collect_scores else None
+    f, aux = _ffn_apply(blk, h, cfg, r, dsg_l, csr_l, aux_kind)
+    return x + f, scores, aux
 
 
 def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
-            tokens: torch.Tensor, *, cache: Optional[dict] = None, pos0=0,
+            tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None, pos0=0,
             live_pages: Optional[int] = None, last_only: bool = False,
             ffn_csr: Optional[dict] = None,
-            collect_drs_scores: bool = False):
+            collect_drs_scores: bool = False, with_aux: bool = False):
     """tokens (B, S) -> (logits, cache) [+ DRS scores (L, B, S, G) when
-    collect_drs_scores].
+    collect_drs_scores] [+ the auxiliary loss summed over layers, a 0-dim
+    f32 tensor, when with_aux].
+
+    prefix_embeds (B, P, d): VLM stub patch embeddings, prepended to the
+    token embeddings (logits then cover P + S positions).
 
     cache: a dense cache {'k', 'v'} of (L, B, Smax, Kv, D) with pos0 an
     int, or the paged view {'pages_k', 'pages_v', 'page_table'} with pos0
@@ -175,6 +244,8 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
         layer_caches = [{"k": cache["k"][l], "v": cache["v"][l]}
                         for l in range(cfg.n_layers)]
     x = model.embed[tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     steps = torch.arange(s, device=x.device)
     if torch.is_tensor(pos0):
@@ -187,26 +258,31 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
     # draws nothing at random, so the recomputed DRS mask is the forward's
     remat = (cfg.remat and cache is None and torch.is_grad_enabled()
              and any(p.requires_grad for p in model.parameters()))
-    all_scores = []
+    aux_kind = cfg.moe_aux if (with_aux and cfg.is_moe) else None
+    all_scores, aux = [], None
     for l, blk in enumerate(model.layers):
         csr_l = ((ffn_csr["idx"][l], ffn_csr["counts"][l])
                  if ffn_csr is not None else None)
         args = (blk, x, cfg, q_pos, layer_caches[l], pos0, page_table,
-                live_pages, r, dsg["fw"][l] if dsg is not None else None,
-                csr_l, collect_drs_scores)
+                live_pages, r, _layer_dsg(dsg, l), csr_l, collect_drs_scores,
+                aux_kind)
         if remat:
-            x, scores = checkpoint(_block, *args, use_reentrant=False)
+            x, scores, aux_l = checkpoint(_block, *args, use_reentrant=False)
         else:
-            x, scores = _block(*args)
+            x, scores, aux_l = _block(*args)
         all_scores.append(scores)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
     x = model.ln_final(x)
     if last_only:
         x = x[:, -1:]
     head = model.embed.t() if model.lm_head is None else model.lm_head
-    logits = x @ head
+    out = (x @ head, cache)
     if collect_drs_scores:
-        return logits, cache, torch.stack(all_scores)
-    return logits, cache
+        out += (torch.stack(all_scores),)
+    if with_aux:
+        out += (torch.zeros((), device=x.device) if aux is None else aux,)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -238,20 +314,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def train_loss(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
                batch: dict) -> torch.Tensor:
-    """Next-token loss of batch {'tokens', 'labels'} (B, S), plus 0.01 x the
-    auxiliary loss, which the dense family does not have."""
-    logits, _ = forward(model, dsg, cfg, batch["tokens"])
-    aux = 0.0
+    """Next-token loss of batch {'tokens', 'labels'} (B, S) (with
+    'prefix_embeds' (B, P, d) for a VLM, whose P prefix positions are cut
+    from the logits), plus 0.01 x the auxiliary loss summed over layers
+    (the MoE's load balance; zero for the other families)."""
+    prefix = batch.get("prefix_embeds")
+    logits, _, aux = forward(model, dsg, cfg, batch["tokens"],
+                             prefix_embeds=prefix, with_aux=True)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
     return cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 
 @torch.no_grad()
 def prefill(model, dsg, cfg: ModelConfig, tokens, cache,
-            collect_drs_scores: bool = False):
-    """Prefill `cache` with the prompt; returns (last_logits (B, V), cache)
-    [+ the last token's DRS scores (L, B, G)]."""
-    out = forward(model, dsg, cfg, tokens, cache=cache, pos0=0,
-                  last_only=True, collect_drs_scores=collect_drs_scores)
+            prefix_embeds=None, collect_drs_scores: bool = False):
+    """Prefill `cache` with the prompt (after `prefix_embeds`, when
+    given); returns (last_logits (B, V), cache) [+ the last token's DRS
+    scores (L, B, G)]."""
+    out = forward(model, dsg, cfg, tokens, prefix_embeds=prefix_embeds,
+                  cache=cache, pos0=0, last_only=True,
+                  collect_drs_scores=collect_drs_scores)
     if collect_drs_scores:
         logits, cache, scores = out
         return logits[:, -1], cache, scores[:, :, -1]

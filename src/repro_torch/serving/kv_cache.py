@@ -307,6 +307,10 @@ class PagedBackend(_Backend):
         if self._table is not None:
             raise RuntimeError("PagedBackend manages one live handle; "
                                "create a fresh backend per engine")
+        if cfg.family not in transformer.DECODER_FAMILIES:
+            raise NotImplementedError(
+                f"paged KV cache supports decoder families only, "
+                f"not {cfg.family!r}")
         if max_seq % self.page_size:
             raise ValueError(f"max_seq={max_seq} must be a multiple of "
                              f"page_size={self.page_size}")

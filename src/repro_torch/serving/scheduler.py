@@ -380,6 +380,10 @@ class ServingEngine:
             if dsg is None or not cfg.dsg.enabled:
                 raise ValueError("dsg_serving needs DSG state: "
                                  "cfg.dsg.enabled and a non-None dsg")
+            if cfg.is_moe or cfg.act != "swiglu":
+                raise ValueError(
+                    "dsg_serving targets the dense SwiGLU FFN family "
+                    f"(got act={cfg.act!r}, moe_experts={cfg.moe_experts})")
             if cfg.dsg.score != "relu_sum":
                 raise ValueError("the decode-time refresh computes relu_sum "
                                  f"scores; cfg.dsg.score is {cfg.dsg.score!r}")

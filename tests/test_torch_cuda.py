@@ -793,8 +793,9 @@ def test_ops_launch_kernels_on_card(cuda):
 
 
 def _smoke_engine(device, dsg_serving, cache_backend="paged",
-                  decode_chunk=1, max_seq=64, page_size=8):
-    cfg = configs.get_smoke_config("internlm2-1.8b")
+                  decode_chunk=1, max_seq=64, page_size=8,
+                  arch="internlm2-1.8b"):
+    cfg = configs.get_smoke_config(arch)
     cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
     gen = torch.Generator().manual_seed(0)
     model = api.init_model(cfg, generator=gen, device="cpu")
@@ -813,11 +814,13 @@ def _smoke_requests(vocab):
 
 
 def _smoke_streams(device, dsg_serving, cache_backend="paged",
-                   decode_chunk=1):
-    eng = _smoke_engine(device, dsg_serving, cache_backend, decode_chunk)
+                   decode_chunk=1, arch="internlm2-1.8b", engine=False):
+    eng = _smoke_engine(device, dsg_serving, cache_backend, decode_chunk,
+                        arch=arch)
     for r in _smoke_requests(eng.cfg.vocab):
         eng.submit(r)
-    return {u: r.output for u, r in eng.run(400).items()}
+    streams = {u: r.output for u, r in eng.run(400).items()}
+    return (streams, eng) if engine else streams
 
 
 @pytest.mark.parametrize("dsg_serving", [None, DSGServingConfig(2)])
@@ -1155,3 +1158,99 @@ def test_capture_inside_threaded_drive_raises_on_card(cuda):
         router.close()
     assert all(not e.graphs.graphs for e in router.engines)
     assert all(e.graphs.capture_open for e in router.engines)
+
+
+# -- the MoE layer and the other decoder families --------------------------
+
+def _moe_parts(device, n_shared=1, mode="shared"):
+    """A smoke-width MoE layer (d 64, 4 experts of 128, top-2) with DSG
+    state, built on the CPU from a seed and moved to `device`."""
+    from repro_torch.core.dsg_linear import DSGConfig
+    from repro_torch.core.projection import make_projection
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(64, 4, 128, n_shared, generator=gen,
+                     dtype=torch.float32)
+    r = make_projection(64, 64, generator=gen)
+    st = {"r": r, "fw_experts": torch.matmul(r, p.w_gate)}
+    if n_shared:
+        st["shared"] = {"r": r, "fw": r @ p.shared.w_gate}
+    x = torch.randn(2, 12, 64, generator=gen)
+    dsg = DSGConfig(enabled=True, gamma=0.5, block=32, threshold_mode=mode)
+
+    def move(t):
+        return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(device))
+    return p.to(device), move(st), x.to(device), dsg
+
+
+@pytest.mark.parametrize("mode", ["topk", "shared"])
+@pytest.mark.parametrize("factor", [1.25, 0.25])
+def test_moe_ffn_card_matches_cpu_on_card(cuda, mode, factor):
+    """The MoE layer on the card (f32, TF32 off) against the CPU, with
+    drops at factor 0.25; two calls on the card are bitwise equal (the
+    combine adds in a fixed order, no atomics), and the routed body
+    captured in a CUDA graph replays to the eager result: it reads nothing
+    back to the host."""
+    from repro_torch.models import moe
+    kw = dict(n_experts=4, top_k=2, capacity_factor=factor)
+    p, st, x, dsg = _moe_parts(torch.device("cpu"), mode=mode)
+    want, aux_want = moe.moe_ffn(p, x, dsg=dsg, dsg_state=st, **kw)
+    p, st, x, dsg = _moe_parts(cuda, mode=mode)
+    got, aux = moe.moe_ffn(p, x, dsg=dsg, dsg_state=st, **kw)
+    again, _ = moe.moe_ffn(p, x, dsg=dsg, dsg_state=st, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), aux_want, rtol=1e-6, atol=0)
+    assert torch.equal(got, again)
+    static = x.clone()
+    moe.moe_ffn(p, static, dsg=dsg, dsg_state=st, aux_kind=None, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe.moe_ffn(p, static, dsg=dsg, dsg_state=st,
+                             aux_kind=None, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_moe_combine_order_on_card(cuda):
+    """On the card a token's output is bitwise the f32 sum from 0.0, in
+    ascending expert order, of its experts' outputs times their weights."""
+    from repro_torch.core.dsg_linear import DSGConfig
+    from repro_torch.models import moe
+    p, _, x, _ = _moe_parts(cuda, n_shared=0)
+    x2d = x.reshape(-1, 64)
+    logits = x2d @ p.router
+    cap = 24
+    y = moe.routed_body(x2d, logits, p, 4, 2, cap, None, None, DSGConfig())
+    w, e = moe.router_topk(torch.softmax(logits, -1), 2)
+    w = w / w.sum(-1, keepdim=True)
+    slot_e, slot_p, in_cap = moe.dispatch(e, 4, cap)
+    assert bool(in_cap.all())
+    idx = torch.full((4, cap), 24, dtype=torch.int64, device=cuda)
+    idx[slot_e, slot_p] = torch.arange(48, device=cuda) // 2
+    xg = torch.cat([x2d, x2d.new_zeros(1, 64)])[idx]
+    ye = torch.bmm(torch.nn.functional.silu(torch.bmm(xg, p.w_gate))
+                   * torch.bmm(xg, p.w_up), p.w_down)
+    for t in range(24):
+        acc = torch.zeros(64, device=cuda)
+        for k in sorted(range(2), key=lambda k: int(e[t, k])):
+            acc = acc + ye[slot_e[2 * t + k], slot_p[2 * t + k]] * w[t, k]
+        assert torch.equal(y[t], acc), t
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llava-next-34b"])
+def test_family_engine_streams_card_match_cpu_on_card(cuda, arch, backend,
+                                                      chunk):
+    """The MoE and VLM smoke engines (f32, DSG on in mask mode) emit the
+    CPU's greedy streams on the card; at chunk 8 every chunk is a graph
+    replay, the MoE's routed body inside it."""
+    got, eng = _smoke_streams(cuda, None, backend, chunk, arch=arch,
+                              engine=True)
+    assert got == _smoke_streams(torch.device("cpu"), None, backend, chunk,
+                                 arch=arch)
+    if chunk > 1:
+        assert sum(eng.graphs.replays.values()) > 0
