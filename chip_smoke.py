@@ -216,12 +216,40 @@ result line):
             printed (the serial paged
             kernel for llama3.2's 3 query heads a kv head and phi3's head
             dim 96).
+23. xlstm — xlstm-350m at full width in bf16 (24 layers in 6 groups of 3
+            mLSTM + 1 sLSTM, d 1024, 4 heads, vocab 50304, no cut), DSG
+            mask mode as the config sets it, after phase 22's memory is
+            freed.  (a) `launch.serve.generate` on 4 prompts of 128 tokens,
+            32 greedy tokens, and the same loop again timed step by step:
+            equal streams, finite logits; prefill ms, eager TPOT p50/p95,
+            decode tok/s; 3 more decode steps under torch.profiler (after
+            2 warm-up steps): launches a step, device ms a step against its
+            byte bound (every weight but the embedding's unused rows, the
+            DSG buffers, the decode state read and written) and the busy
+            share.  (b) prefill(127) and one decode step against
+            prefill(128), DSG off, in bf16 and in an f32 copy of the
+            model: argmax equal wherever the top-2 margin exceeds twice
+            the largest difference.  (c) the smoke model's `generate`
+            (prompts 12 and 24, per-row top-k threshold) card == CPU.
+            (d) 12 AdamW steps at batch 8 x 256 (f32 masters, remat,
+            refresh every 4): finite losses, and step 0's batch scores
+            below its first loss after the last step; step ms, tokens/s,
+            MFU, peak memory; the smoke model's 4 steps card == CPU.
+            None of the six kernels may lie on the path: their launches
+            are printed (0).
+24. zamba — zamba2-7b at full width in bf16 (13 groups of 6 Mamba2 blocks
+            and one shared attention / SwiGLU block, d 3584, 32 heads of
+            112, F 14336, SSM state 64, window 4096, vocab 32000): 23 (a)
+            and (c), then 12 training steps at 2 of the 13 groups (12
+            Mamba2 blocks, every width kept: the full model's weights,
+            gradients and f32 AdamW state take ≈ 104 GB) and the smoke
+            model's 4 steps card == CPU.
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-then 6-9, 19, 21 and 22; each prints its seconds.
+then 6-9, 19 and 21-24; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -691,13 +719,20 @@ def smoke_training(device, steps=4):
     return [h["loss"] for h in hist], forward
 
 
+def device_event(e) -> bool:
+    """A kernel or copy on the device: a scheduled profile's step
+    annotations ("ProfilerStep#n") show on the device timeline too."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep"))
+
+
 def busy(prof) -> dict:
     """The device's busy time (the union of its kernel and copy intervals)
     in a profiled window, the window from its first to its last activity,
     and the 8 kernels with the most device time."""
-    from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if device_event(e))
     if not spans:
         return None
     total, end, by_name = 0.0, spans[0][0], {}
@@ -2185,6 +2220,396 @@ def dense_config_phase(dev, arch) -> dict:
     return out
 
 
+# -- phases 23-24: the recurrent families at full width --------------------
+
+XLSTM_ARCH = "xlstm-350m"
+ZAMBA_ARCH = "zamba2-7b"
+# zamba2-7b trains at 2 of its 13 groups (12 Mamba2 blocks, every width
+# kept): bf16 weights and grads plus f32 m, v and master weights come to
+# 16 bytes a parameter, 104 GB for its 6.52 B, over the card's 80 GB
+ZAMBA_TRAIN_GROUPS = 2
+GEN_LANES, GEN_PROMPT, GEN_TOKENS = 4, 128, 32
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def state_leaves(state) -> list:
+    """The tensors of a (nested) decode-state dict."""
+    if state is None:
+        return []
+    out = []
+    for v in state.values():
+        out += state_leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def timed_generate(cfg, model, dsg, prompts, gen_tokens):
+    """`launch.serve.generate`'s greedy loop through `api.prefill` and
+    `api.decode_step`, each call ending in a synchronize: (tokens, prefill
+    seconds, each decode step's seconds, the last state, the last
+    logits)."""
+    import torch
+    from repro_torch.models import api
+    b, p_len = prompts.shape
+    cache = api.make_cache(cfg, b, p_len + gen_tokens, device=prompts.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = api.prefill(model, dsg, cfg, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, steps = [], []
+    for i in range(gen_tokens):
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+        t0 = time.perf_counter()
+        logits, state = api.decode_step(model, dsg, cfg, tok[:, None], state,
+                                        p_len + i)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return torch.stack(out, dim=1), prefill_s, steps, state, logits
+
+
+def profile_decode(cfg, model, dsg, logits, state, pos, active=3):
+    """Eager decode steps from (logits, state) at position pos under
+    torch.profiler, 2 warm-up steps then `active` traced ones, each ending
+    in a synchronize: busy() over the traced window, with the device
+    events and device ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.models import api
+    traced = []
+
+    def ready(prof):
+        # the trace of the active steps, read when it is ready: the
+        # profiler clears a cycle's events at its end
+        b = busy(prof)
+        if b is not None:
+            traced.append(dict(b, events=sum(
+                1 for e in prof.events() if device_event(e))))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=active,
+                                   repeat=1), on_trace_ready=ready) as prof:
+        for i in range(2 + active):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            logits, state = api.decode_step(model, dsg, cfg, tok, state,
+                                            pos + i)
+            torch.cuda.synchronize()
+            prof.step()
+    if not traced:
+        return None
+    b = traced[0]
+    return dict(b, events_per_step=b["events"] / active,
+                device_ms_per_step=b["busy_ms"] / active)
+
+
+def decode_bytes(model, dsg, state, lanes) -> int:
+    """The bytes one decode step must move: every weight once (the
+    embedding's `lanes` rows only), the DSG buffers, and the decode state
+    read and written, except the K/V slots, read once (one row of them is
+    written)."""
+    emb = model.embed
+    weights = (nbytes(model.parameters()) - nbytes([emb])
+               + lanes * emb.shape[1] * emb.element_size())
+    kv = [v for k, v in state.items() if k in ("k", "v")]
+    rest = [t for k, v in state.items() if k not in ("k", "v")
+            for t in state_leaves({k: v})]
+    return (weights + (nbytes(dsg.values()) if dsg else 0) + nbytes(kv)
+            + 2 * nbytes(rest))
+
+
+def recurrent_smoke(device, arch, refresh=None):
+    """`arch`'s smoke model (f32, DSG's per-row top-k threshold, as the
+    other card == CPU checks) built on the CPU from SEED and moved to
+    `device`: (cfg, model, dsg)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_smoke_config(arch)
+    cfg = cfg.replace(dsg=cfg.dsg._replace(
+        threshold_mode="topk", refresh_every=refresh or
+        cfg.dsg.refresh_every))
+    gen = torch.Generator().manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+    return cfg, model.to(device), {k: v.to(device) for k, v in dsg.items()}
+
+
+def smoke_recurrent_generate(device, arch, prompt) -> list:
+    """The smoke model's `generate`: 2 prompts of `prompt` tokens, 8 greedy
+    tokens each."""
+    import torch
+    from repro_torch.launch import serve
+    cfg, model, dsg = recurrent_smoke(device, arch)
+    prompts = torch.randint(0, cfg.vocab, (2, prompt),
+                            generator=torch.Generator().manual_seed(
+                                SEED + prompt))
+    return serve.generate(cfg, model, dsg, prompts.to(device), 8).tolist()
+
+
+def smoke_recurrent_training(device, arch, steps=4) -> list:
+    """The smoke model's losses over `steps` training steps (batch 4 x seq
+    32, refresh every 2) from one CPU initialisation."""
+    from repro_torch.launch import train
+    cfg, model, dsg = recurrent_smoke(device, arch, refresh=2)
+    _, hist, _ = train.train(cfg, steps=steps, global_batch=4, seq_len=32,
+                             seed=SEED, device=device, init=(model, dsg),
+                             log_every=steps)
+    return [h["loss"] for h in hist]
+
+
+def recurrent_train(dev, cfg, tag, cut="", steps=12, batch=8, seq=256,
+                    refresh=4) -> dict:
+    """`steps` AdamW steps of cfg (bf16, f32 masters, DSG mask mode, remat)
+    on batch x seq tokens of the synthetic stream, f(W) refreshed every
+    `refresh` steps: the losses must be finite, and step 0's batch must
+    score below its first loss once the last step is taken."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    cfg = cfg.replace(dsg=cfg.dsg._replace(refresh_every=refresh))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist, monitor = train.train(
+        cfg, steps=steps, global_batch=batch, seq_len=seq, seed=SEED,
+        device=dev, log_every=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.embed.numel()
+    losses = [h["loss"] for h in hist]
+    ms = sorted(1e3 * h["seconds"] for h in hist[1:])
+    p50 = ms[len(ms) // 2]
+    p95 = ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))]
+    tokens = batch * seq
+    refreshed = [h["step"] + 1 for h in hist if h["refresh"]]
+    # the first loss is step 0's batch on the initial weights; the same
+    # batch on the trained weights is the comparison that batch-to-batch
+    # noise does not decide (each batch draws its own period and tokens)
+    with torch.no_grad():
+        batch0 = {k: v.to(dev) for k, v in synthetic.batch_at(
+            0, global_batch=batch, seq_len=seq, vocab=cfg.vocab,
+            seed=SEED).items()}
+        after = float(api.train_loss(model, state["dsg"], cfg, batch0))
+    out = {"losses": losses, "batch0_loss_after": after,
+           "step_ms_p50": p50, "step_ms_p95": p95,
+           "tokens_per_s": 1e3 * tokens / p50,
+           "mfu": 6 * n_matmul * tokens / (p50 / 1e3) / PEAK_FLOPS[
+               "torch.bfloat16"],
+           "n_params": n_params, "n_matmul": n_matmul, "cut": cut,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "refreshed_at": refreshed, "wall_s": wall}
+    del state, model
+    print(f"[{tag}] train {cfg.name}{cut}: {n_params / 1e9:.3f}B params in "
+          f"{cfg.dtype} with f32 masters, DSG {cfg.dsg.mode} gamma "
+          f"{cfg.dsg.gamma}, remat, batch {batch} x seq {seq}, {steps} "
+          f"AdamW steps, refresh every {refresh}: losses "
+          f"{[round(x, 4) for x in losses]}; step ms p50 {p50:.1f} p95 "
+          f"{p95:.1f}; step 0's batch {losses[0]:.4f} before, {after:.4f} "
+          f"after the last step; {out['tokens_per_s']:.0f} tokens/s; MFU "
+          f"{100 * out['mfu']:.2f}% (6 x {n_matmul / 1e9:.3f}B x {tokens} "
+          f"tokens / step / 989 TFLOP/s); peak allocated "
+          f"{out['peak_gb']:.2f} GB; wall {wall:.2f}s", flush=True)
+    if len(hist) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: training losses are not all finite: {losses}")
+    if not after < losses[0]:
+        fail(f"{tag}: step 0's batch scores {after} after the last step, not "
+             f"below its first loss {losses[0]}")
+    if monitor.failures or refreshed != list(range(refresh, steps + 1,
+                                                   refresh)):
+        fail(f"{tag}: retries {monitor.failures}, refreshed after "
+             f"{refreshed}")
+    return out
+
+
+def continuation(cfg, model, prompts) -> dict:
+    """prefill(P - 1) and one decode step against prefill(P)'s last
+    logits, DSG off: the config's shared DRS threshold is row 0 of
+    whatever one call holds (the first prompt token in a prefill, lane 0's
+    token in a decode step), so with DSG on the two calls' masks differ by
+    design, in the reference too.  The argmax is held where the top-2
+    margin exceeds twice the largest difference: at full width the model
+    is chaotic at its random initialisation (the reference's own 24-layer
+    f32 logits move by 0.8 under a 1e-7 relative weight perturbation), and
+    a prefill of 127 tokens rounds every token unlike one of 128 (the
+    GEMMs' blocking follows the shape)."""
+    import torch
+    from repro_torch.models import api
+    p = prompts.shape[1]
+    full, _ = api.prefill(model, None, cfg, {"tokens": prompts}, None)
+    _, st = api.prefill(model, None, cfg, {"tokens": prompts[:, :-1]}, None)
+    step, _ = api.decode_step(model, None, cfg, prompts[:, -1:], st, p - 1)
+    full, step = full.float(), step.float()
+    top2 = torch.topk(full, 2, dim=-1).values
+    diff = float((full - step).abs().max())
+    equal = (full.argmax(-1) == step.argmax(-1)).tolist()
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    # the repo's bf16 rule: argmax equal wherever the top-2 margin exceeds
+    # twice the largest difference (elsewhere rounding decides it)
+    return {"max_abs_diff": diff, "argmax_equal": equal,
+            "top2_margin": margin,
+            "decided": [m > 2 * diff for m in margin],
+            "decided_equal": all(e for e, m in zip(equal, margin)
+                                 if m > 2 * diff)}
+
+
+def recurrent_phase(dev, arch) -> dict:
+    """Phase 23 (xlstm-350m) or 24 (zamba2-7b) at full width in bf16 with
+    random weights from SEED and DSG as the config sets it.  See the module
+    docstring."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    tag = "xlstm" if arch == XLSTM_ARCH else "zamba"
+    cfg = configs.get_config(arch)
+    kernels = dict({n: k[0] for n, k in serve_kernels().items()},
+                   dsg_ffn=dsg_ffn.dsg_ffn,
+                   flash_attention=flash_attention.flash_attention)
+    for w in kernels.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "params_b": sum(p.numel() for p in
+                                         model.parameters()) / 1e9,
+           "weights_gb": nbytes(model.parameters()) / 1e9,
+           "dsg_gb": nbytes(dsg.values()) / 1e9,
+           "init_s": time.perf_counter() - t0}
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers, d={cfg.d_model}, vocab "
+          f"{cfg.vocab}, {out['params_b']:.3f}B params = "
+          f"{out['weights_gb']:.3f} GB in {cfg.dtype}; DSG {sorted(dsg)} "
+          f"{out['dsg_gb']:.3f} GB (k {dsg['r'].shape[0]}, "
+          f"{cfg.dsg.threshold_mode} threshold); init {out['init_s']:.2f}s",
+          flush=True)
+
+    # (a) generate: 4 prompts of 128 tokens, 32 greedy tokens, twice
+    t1 = time.perf_counter()
+    prompts = torch.randint(0, cfg.vocab, (GEN_LANES, GEN_PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                SEED + 7), device=dev)
+    first = serve.generate(cfg, model, dsg, prompts, GEN_TOKENS)
+    second, prefill_s, steps_s, state, logits = timed_generate(
+        cfg, model, dsg, prompts, GEN_TOKENS)
+    equal = torch.equal(first, second)
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{tag}: non-finite logits at full width")
+    ms = sorted(1e3 * x for x in steps_s)
+    prof = profile_decode(cfg, model, dsg, logits, state,
+                          GEN_PROMPT + GEN_TOKENS)
+    step_bytes = decode_bytes(model, dsg, state, GEN_LANES)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    out["generate"] = {
+        "streams_equal": equal, "prefill_ms": 1e3 * prefill_s,
+        "tpot_p50_ms": ms[len(ms) // 2],
+        "tpot_p95_ms": ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))],
+        "decode_tok_per_s": GEN_LANES * GEN_TOKENS / sum(steps_s),
+        "state_gb": nbytes(state_leaves(state)) / 1e9,
+        "step_bound_ms": bound_ms, "step_bound_gb": step_bytes / 1e9,
+        "profile": prof, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_row": first[0, :8].tolist()}
+    g = out["generate"]
+    dev_line = ("device time not measured (no device events)" if prof is None
+                else f"{prof['events_per_step']:.0f} device events (launches) "
+                     f"a step; one step {prof['device_ms_per_step']:.3f} ms "
+                     f"on the device against its byte bound "
+                     f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB at "
+                     f"3.35 TB/s): "
+                     f"{prof['device_ms_per_step'] / bound_ms:.2f}x; device "
+                     f"busy {100 * prof['busy_share']:.1f}% of the traced "
+                     f"window; top "
+                     f"{[(k['name'][:40], round(k['ms'], 2)) for k in prof['by_kernel'][:4]]}")
+    print(f"[{tag}] (a) generate {GEN_LANES} x {GEN_PROMPT} prompt tokens, "
+          f"{GEN_TOKENS} greedy tokens, twice: streams equal {equal}; "
+          f"prefill {g['prefill_ms']:.1f} ms; eager TPOT p50 "
+          f"{g['tpot_p50_ms']:.2f} ms p95 {g['tpot_p95_ms']:.2f} ms; decode "
+          f"{g['decode_tok_per_s']:.1f} tok/s; state "
+          f"{g['state_gb']:.3f} GB; {dev_line}; peak allocated "
+          f"{g['peak_gb']:.2f} GB; {time.perf_counter() - t1:.2f}s",
+          flush=True)
+    if not equal:
+        fail(f"{tag}: the two generate runs' streams differ")
+    del first, second, state, logits
+
+    if arch == XLSTM_ARCH:
+        # (b) decode continues prefill: in the config's bf16 the argmax is
+        # held where rounding cannot decide it (a top-2 margin above twice
+        # the largest difference); in f32 everywhere
+        t1 = time.perf_counter()
+        cont = continuation(cfg, model, prompts)
+        del model, dsg
+        f32 = cfg.replace(dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        m32 = api.init_model(f32, generator=gen, device=dev)
+        cont32 = continuation(f32, m32, prompts)
+        del m32
+        out["continuation"] = {"bf16": cont, "f32": cont32}
+        print(f"[{tag}] (b) prefill({GEN_PROMPT - 1}) + one decode step "
+              f"against prefill({GEN_PROMPT}), DSG off: bf16 max abs diff "
+              f"{cont['max_abs_diff']:.4g}, argmax equal "
+              f"{cont['argmax_equal']}, top-2 margins "
+              f"{[round(m, 4) for m in cont['top2_margin']]} (decided "
+              f"{cont['decided']}); f32 max abs diff "
+              f"{cont32['max_abs_diff']:.3g}, argmax equal "
+              f"{cont32['argmax_equal']}, top-2 margins "
+              f"{[round(m, 4) for m in cont32['top2_margin']]} (decided "
+              f"{cont32['decided']}); {time.perf_counter() - t1:.2f}s",
+              flush=True)
+        if not (cont["decided_equal"] and cont32["decided_equal"]):
+            fail(f"{tag}: decode does not continue the prefill: {cont}, "
+                 f"f32 {cont32}")
+    else:
+        del model, dsg
+    del prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the smoke model's generate, card == CPU
+    t1 = time.perf_counter()
+    smoke = {}
+    for prompt in (12, 24):
+        card = smoke_recurrent_generate(dev, arch, prompt)
+        cpu = smoke_recurrent_generate(torch.device("cpu"), arch, prompt)
+        smoke[prompt] = card == cpu
+    out["smoke_generate_equal"] = smoke
+    print(f"[{tag}] smoke generate card == CPU at prompts 12 and 24: "
+          f"{smoke}; {time.perf_counter() - t1:.2f}s", flush=True)
+    if not all(smoke.values()):
+        fail(f"{tag}: smoke generate on the card differs from the CPU")
+
+    # training at full width (zamba2-7b at its depth cut)
+    if arch == ZAMBA_ARCH:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        tcfg = cfg.replace(n_layers=ZAMBA_TRAIN_GROUPS * cfg.shared_attn_every)
+        cut = (f" cut to {ZAMBA_TRAIN_GROUPS} of {groups} groups "
+               f"({tcfg.n_layers} Mamba2 blocks, every width kept)")
+    else:
+        tcfg, cut = cfg, " (no cut)"
+    out["train"] = recurrent_train(dev, tcfg, tag, cut)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    card_l = smoke_recurrent_training(dev, arch)
+    cpu_l = smoke_recurrent_training(torch.device("cpu"), arch)
+    out["smoke_train"] = {"card": card_l, "cpu": cpu_l}
+    print(f"[{tag}] smoke width, 4 steps: losses on the card {card_l}, on "
+          f"the CPU {cpu_l}; {time.perf_counter() - t1:.2f}s", flush=True)
+    if len(card_l) != 4 or any(abs(a - b) > 1e-5 * abs(b)
+                               for a, b in zip(card_l, cpu_l)):
+        fail(f"{tag}: smoke-width training on the card differs from the CPU")
+    out["kernel_launches"] = {n: w.launches for n, w in kernels.items()}
+    print(f"[{tag}] the port's kernels launched in this phase: "
+          f"{out['kernel_launches']} (none lies on this path)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2688,6 +3113,15 @@ def main() -> int:
         {a: {k: v for k, v in o.items() if k != "kernels"}
          for a, o in dense_cfgs.items()}), flush=True)
     print(f"[phase 22] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 23-24. the recurrent families at full width, each on freed memory
+    for phase, arch in ((23, XLSTM_ARCH), (24, ZAMBA_ARCH)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = recurrent_phase(dev, arch)
+        print(f"[{arch}] stats " + json.dumps(rec), flush=True)
+        print(f"[phase {phase}] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

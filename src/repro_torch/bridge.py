@@ -3,14 +3,21 @@
 The reference builds its weights with JAX's PRNG, which torch cannot
 replay, so a parity test builds them there, converts every leaf to numpy
 (`jax.tree.map(np.asarray, params)`) and hands the nested dicts here.  The
-reference stacks per-layer leaves (L, ...) for lax.scan; the port keeps
-one module per layer, so the stacks are split along their first axis.  The
-DSG state keeps its stacked leaves (fw (L, k, F), or an MoE's fw_experts
-(L, E, k, F_e) and fw_shared (L, k, n_shared · F_e)) in both packages.
+reference stacks per-block leaves for lax.scan: (L, ...) under `layers`
+for a decoder, (G, n_m, ...) under `mlstm` and (G, ...) under `slstm` for
+xLSTM, (G, every, ...) under `mamba` for Zamba2.  The port keeps one
+module per block in (nested) ModuleLists, whose parameter names carry the
+indices (`layers.3.attn.wq`, `mlstm.1.2.core.w_qkv`), so the stacks are
+split along their leading axes.  Each leaf keeps its own dtype (the
+recurrent cores' gate weights, a_log, dt_bias, d_skip, r_diag and bias are
+f32 in a bf16 model).  The DSG state keeps its stacked leaves in both
+packages (fw (L, k, F); an MoE's fw_experts and fw_shared; xLSTM's fw_m
+(G, n_m, k, d) and fw_s (G, k, d); Zamba2's fw_z (G, every, k, d_in) and
+fw_shared (k, F)).
 
 The other way, `state_tree` lays the trainer's state (model, DSG state,
-AdamW state, error feedback) out as the reference's tree: per-layer leaves
-stacked over L under `layers`, the optimizer's `m`/`v`/`master` mirroring
+AdamW state, error feedback) out as the reference's tree: per-block leaves
+stacked over their indices, the optimizer's `m`/`v`/`master` mirroring
 `params`.  The checkpoint keys are its tree paths, and `state_to_numpy`
 gives it as numpy arrays for the parity tests.
 """
@@ -22,13 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch import nn
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dsg_linear import DSGConfig, SwiGLU
+from repro_torch.core.dsg_linear import DSGConfig
+from repro_torch.models import recurrent, transformer
 from repro_torch.models.api import require_device
-from repro_torch.models.attention import Attention
-from repro_torch.models.layers import RMSNorm
-from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import Block, Transformer, set_trainable
+from repro_torch.models.transformer import set_trainable
 
 
 def tensor(a, device=None) -> torch.Tensor:
@@ -40,43 +47,37 @@ def tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def model_from_jax(params: dict, cfg, device="cuda",
-                   trainable: bool = False) -> Transformer:
-    """A `repro.models.transformer.init_model` pytree -> Transformer, on
-    the card unless `device` says otherwise; `trainable` turns
-    requires_grad on."""
+def model_from_jax(params: dict, cfg, device="cuda", trainable: bool = False):
+    """A `repro.models.api.init_model` pytree -> the port's module for
+    cfg.family (Transformer, XLSTMModel or ZambaModel), on the card unless
+    `device` says otherwise; `trainable` turns requires_grad on.  The
+    module is built on the meta device (shapes only) and each parameter
+    replaced by its leaf of `params`, which must hold exactly the module's
+    leaves."""
     device = require_device(device)
-    lay = params["layers"]
-
-    def take(leaf, l):
-        return tensor(np.asarray(leaf)[l], device)
-
-    def swiglu(f, l):
-        return SwiGLU(take(f["w_gate"], l), take(f["w_up"], l),
-                      take(f["w_down"], l))
-
-    def ffn(l):
-        if "ffn" in lay:
-            return swiglu(lay["ffn"], l)
-        m = lay["moe"]          # the router stays f32, as the reference's
-        return MoE(take(m["router"], l), take(m["w_gate"], l),
-                   take(m["w_up"], l), take(m["w_down"], l),
-                   swiglu(m["shared"], l) if "shared" in m else None)
-
-    layers = []
-    for l in range(cfg.n_layers):
-        a = lay["attn"]
-        layers.append(Block(
-            RMSNorm(take(lay["ln_attn"]["scale"], l)),
-            Attention(take(a["wq"], l), take(a["wk"], l), take(a["wv"], l),
-                      take(a["wo"], l)),
-            RMSNorm(take(lay["ln_ffn"]["scale"], l)), ffn(l)))
-    lm_head = params.get("lm_head")
-    model = Transformer(tensor(params["embed"], device), layers,
-                        RMSNorm(tensor(params["ln_final"]["scale"], device)),
-                        tensor(lm_head, device) if lm_head is not None
-                        else None)
+    init = {"xlstm": recurrent.init_xlstm_model,
+            "zamba": recurrent.init_zamba_model}.get(cfg.family,
+                                                    transformer.init_model)
+    model = init(cfg, generator=None, device="meta")
+    names = [n for n, _ in model.named_parameters()]
+    want = {_split(n)[0] for n in names}
+    if want != _paths(params):
+        raise ValueError(f"the reference tree's leaves "
+                         f"{sorted(_paths(params) ^ want)} do not match the "
+                         f"{cfg.family} model's")
+    for name, t in from_reference_tree(params, names, device).items():
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            t.clone(), requires_grad=False)
     return set_trainable(model, trainable)
+
+
+def _paths(tree: dict, prefix=()) -> set:
+    out = set()
+    for k, v in tree.items():
+        out |= (_paths(v, prefix + (k,)) if isinstance(v, dict)
+                else {prefix + (k,)})
+    return out
 
 
 def config_from_jax(ref_cfg) -> ModelConfig:
@@ -110,20 +111,35 @@ def _get(tree: dict, parts):
     return tree
 
 
+def _split(name: str):
+    """A parameter name -> (tree path, block indices): `mlstm.1.2.core.w`
+    -> (('mlstm', 'core', 'w'), (1, 2)); a name with no indices has ()."""
+    parts = name.split(".")
+    i = 1
+    while i < len(parts) and parts[i].isdigit():
+        i += 1
+    return (parts[0],) + tuple(parts[i:]), tuple(int(p) for p in parts[1:i])
+
+
 def to_reference_tree(flat: dict) -> dict:
     """{parameter name: tensor} (the names of `model.named_parameters()`)
-    -> the reference's nested tree, on the host, with `layers.<l>.<path>`
-    stacked over l into `layers/<path>`."""
+    -> the reference's nested tree, on the host (meta tensors stay meta),
+    each block leaf stacked over its indices (`layers.<l>.<path>` into `layers/<path>` (L, ...),
+    `mlstm.<g>.<l>.<path>` into `mlstm/<path>` (G, n_m, ...))."""
     tree, stacks = {}, {}
     for name, t in flat.items():
-        parts = name.split(".")
-        t = t.detach().cpu()
-        if parts[0] == "layers":
-            stacks.setdefault(tuple(parts[2:]), []).append(t)
+        path, idx = _split(name)
+        t = t.detach() if t.is_meta else t.detach().cpu()
+        if idx:
+            stacks.setdefault(path, []).append((idx, t))
         else:
-            _put(tree, parts, t)
-    for parts, ts in stacks.items():
-        _put(tree, ("layers",) + parts, torch.stack(ts))
+            _put(tree, path, t)
+    for path, items in stacks.items():
+        items.sort(key=lambda it: it[0])
+        grid = tuple(max(i[a] for i, _ in items) + 1
+                     for a in range(len(items[0][0])))
+        stacked = torch.stack([t for _, t in items])
+        _put(tree, path, stacked.reshape(grid + stacked.shape[1:]))
     return tree
 
 
@@ -134,20 +150,15 @@ def _as_tensor(leaf) -> torch.Tensor:
 def from_reference_tree(tree: dict, names, device=None) -> dict:
     """The reference's nested tree (numpy or tensor leaves) -> {parameter
     name: tensor} for `names`, each stacked leaf split back into its
-    layers."""
+    blocks."""
     out = {}
     for name in names:
-        parts = name.split(".")
-        if parts[0] == "layers":
-            leaf = _as_tensor(_get(tree, ["layers"] + parts[2:]))[
-                int(parts[1])]
-        else:
-            leaf = _as_tensor(_get(tree, parts))
-        out[name] = leaf.to(device)
+        path, idx = _split(name)
+        out[name] = _as_tensor(_get(tree, path))[idx].to(device)
     return out
 
 
-def state_tree(model: Transformer, dsg: Optional[dict], opt: dict,
+def state_tree(model: nn.Module, dsg: Optional[dict], opt: dict,
                err: Optional[dict] = None) -> dict:
     """The trainer's state as the reference's `{'params', 'dsg', 'opt',
     'err'}` tree of host tensors (no 'dsg' without DSG, no 'err' without
@@ -169,7 +180,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def state_to_numpy(model: Transformer, dsg: Optional[dict], opt: dict,
+def state_to_numpy(model: nn.Module, dsg: Optional[dict], opt: dict,
                    err: Optional[dict] = None) -> dict:
     """`state_tree` with numpy leaves (bf16 leaves widened to f32, which
     numpy can hold without ml_dtypes)."""
@@ -179,7 +190,7 @@ def state_to_numpy(model: Transformer, dsg: Optional[dict], opt: dict,
     return conv(state_tree(model, dsg, opt, err))
 
 
-def load_state_tree(tree: dict, model: Transformer, dsg: Optional[dict],
+def load_state_tree(tree: dict, model: nn.Module, dsg: Optional[dict],
                     opt: dict, err: Optional[dict] = None) -> None:
     """Copy a `state_tree`-shaped tree (a restored checkpoint) into the
     trainer's state, in place."""
@@ -201,7 +212,7 @@ def load_state_tree(tree: dict, model: Transformer, dsg: Optional[dict],
                 err[n].copy_(t)
 
 
-def opt_from_jax(opt: dict, model: Transformer, device="cuda") -> dict:
+def opt_from_jax(opt: dict, model: nn.Module, device="cuda") -> dict:
     """A `repro.optim.adamw.init_opt` state (numpy leaves) -> the port's
     AdamW state for `model`, on the card unless `device` says otherwise."""
     device = require_device(device)

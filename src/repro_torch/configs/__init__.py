@@ -1,8 +1,9 @@
 """Architecture registry: --arch <id> resolves here.
 
-The seven archs of the decoder families (dense, moe, vlm) are ported; the
-recurrent, hybrid and encoder-decoder archs (xlstm-350m, zamba2-7b,
-whisper-large-v3) are not yet (ROADMAP.md queue 1 item 8)."""
+The seven archs of the decoder families (dense, moe, vlm) and the two of
+the recurrent families (xlstm-350m, and the zamba2-7b hybrid) are ported;
+the encoder-decoder arch whisper-large-v3 is not yet (ROADMAP.md queue 1
+item 8)."""
 from repro_torch.configs import (
     deepseek_moe_16b,
     internlm2_1_8b,
@@ -11,6 +12,8 @@ from repro_torch.configs import (
     llava_next_34b,
     mistral_nemo_12b,
     phi3_mini_3_8b,
+    xlstm_350m,
+    zamba2_7b,
 )
 from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
                                       ModelConfig, ShapeConfig,
@@ -18,7 +21,8 @@ from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
 
 _MODULES = (
     mistral_nemo_12b, internlm2_1_8b, llama3_2_3b, phi3_mini_3_8b,
-    deepseek_moe_16b, llama4_scout_17b_a16e, llava_next_34b,
+    deepseek_moe_16b, llama4_scout_17b_a16e, llava_next_34b, xlstm_350m,
+    zamba2_7b,
 )
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}

@@ -2,7 +2,8 @@
 
 Every field of the reference is kept so a config compares field for field
 with its JAX counterpart.  The port runs the decoder families (dense, moe,
-vlm); fields of the other families are carried as data only.
+vlm) and the recurrent ones (xlstm, zamba); the encoder-decoder fields
+(enc_layers, dec_ratio) are carried as data only.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ synthetic traffic through the ServingEngine, as `repro.launch.serve` does.
                                              # full width, on the GPU
 
 The defaults are the reference's: `--workload batch` (one batch of
-`--batch` prompts of `--prompt-len` tokens, `--gen` greedy tokens each) and
+`--batch` prompts of `--prompt-len` tokens, `--gen` greedy tokens each,
+every arch; the recurrent archs xlstm-350m and zamba2-7b serve only so) and
 `--cache-backend dense` and `--admission overlap` for `--workload mixed`,
 whose requests sample at `--temperature` / `--top-p` (0 = greedy).
 `--replicas N` serves them through a Router (`--route-policy`,
@@ -45,7 +46,8 @@ from repro_torch.serving.workload import mixed_requests, run_workload
 def generate(cfg, model, dsg, prompts: torch.Tensor,
              gen_tokens: int) -> torch.Tensor:
     """prompts (B, P) int -> greedy tokens (B, gen_tokens): one batched
-    prompt prefill into a dense cache of P + gen_tokens positions, then
+    prompt prefill into a dense cache of P + gen_tokens positions (for the
+    recurrent families, the decode state the prefill returns), then
     token-by-token decode with the same DSG masks as the prefill (the
     reference's `generate` at temperature 0, its default)."""
     b, p_len = prompts.shape
@@ -192,6 +194,11 @@ def main(argv=None):
     if args.dsg_threshold_mode is not None:
         cfg = cfg.replace(dsg=cfg.dsg._replace(
             threshold_mode=args.dsg_threshold_mode))
+    if cfg.family in api.RECURRENT_FAMILIES and args.workload == "mixed":
+        ap.error(f"--workload mixed: the serving engine runs the decoder "
+                 f"families, not {cfg.family!r} ({args.arch} serves through "
+                 f"--workload batch; the reference's engine crashes on it, "
+                 f"ROADMAP.md §3)")
     if args.dsg_serving and args.workload != "mixed":
         ap.error("--dsg-serving is a mixed-workload (serving engine) "
                  "feature; add --workload mixed")

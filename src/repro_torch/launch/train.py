@@ -8,6 +8,8 @@ straggler monitor -> crash/restore loop.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --arch zamba2-7b --steps 2        # or xlstm-350m: the recurrent archs
 
 Runs on the card unless `--device cpu` (or device="cpu") asks for the CPU;
 without a card it exits with an error.  The production mesh and the ZeRO-1
@@ -35,6 +37,15 @@ from repro_torch.runtime.fault_tolerance import StragglerMonitor, \
 log = logging.getLogger("repro_torch.train")
 
 
+def loss_grads(loss: torch.Tensor, params: dict) -> list:
+    """d loss / d p for every parameter, in order; zeros for a parameter
+    the loss does not read (an mLSTM's `skip`), as jax.grad gives."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params.values())]
+
+
 def trainer_for(model, dsg, cfg, acfg: adamw.AdamWConfig, *,
                 grad_compress: bool = False):
     """(state, step_fn, refresh_fn) for an existing model and DSG state,
@@ -54,8 +65,7 @@ def trainer_for(model, dsg, cfg, acfg: adamw.AdamWConfig, *,
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         params = dict(state["model"].named_parameters())
         loss = api.train_loss(state["model"], state["dsg"], cfg, batch)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        grads = dict(zip(params, loss_grads(loss, params)))
         if grad_compress:
             # ternary codes + error feedback on the gradient stream
             grads, state["err"] = tree_compress_with_feedback(

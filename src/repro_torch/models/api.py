@@ -1,18 +1,22 @@
 """Model API used by the serving engine, the launchers and the tests: the
-decoder families (dense, moe, vlm) of `repro.models.api`.
+decoder families (dense, moe, vlm) and the recurrent families (xlstm,
+zamba) of `repro.models.api`.
 
-  init_model(cfg, generator=, device=)          -> Transformer
+  init_model(cfg, generator=, device=)          -> the family's nn.Module
   init_dsg(model, cfg, generator=, device=)     -> DSG state or None
   refresh_dsg(dsg, model, cfg)                  -> DSG state, f(W) anew
   train_loss(model, dsg, cfg, batch)            -> scalar loss
-  make_cache(cfg, batch, max_seq, device=)      -> dense {'k', 'v'} cache
-  prefill(model, dsg, cfg, inputs, cache)       -> (last_logits, cache)
-  decode_step(model, dsg, cfg, token, cache, pos) -> (logits, cache)
+  make_cache(cfg, batch, max_seq, device=)      -> decode state (None for
+                                                   xlstm, built lazily)
+  prefill(model, dsg, cfg, inputs, cache)       -> (last_logits, state)
+  decode_step(model, dsg, cfg, token, state, pos) -> (logits, state)
   make_inputs(cfg, shape, concrete=, seed=, device=) -> batch dict
 
-Serving picks the cache layout through `repro_torch.serving.kv_cache` and
-passes the paged view into decode_step.  Caches are updated in place.
-The other families (xlstm, zamba, encdec) raise NotImplementedError,
+Serving picks a decoder's cache layout through `repro_torch.serving.kv_cache`
+and passes the paged view into decode_step; decoder caches are updated in
+place.  The recurrent families return new states, as the reference's do
+(`models/recurrent.py`), and take neither DRS score collection nor the
+group-CSR FFN.  The encoder-decoder family raises NotImplementedError,
 naming ROADMAP.md.  The entry points that make tensors put them on the
 card unless the caller asks for the CPU (`device="cpu"`); with no card
 they raise.
@@ -25,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import recurrent, transformer
 
 DECODER_FAMILIES = transformer.DECODER_FAMILIES
+RECURRENT_FAMILIES = ("xlstm", "zamba")
 
 
 def require_device(device) -> torch.device:
@@ -40,61 +45,122 @@ def require_device(device) -> torch.device:
     return device
 
 
-def _require_decoder(cfg: ModelConfig, verb: str) -> None:
-    if cfg.family not in DECODER_FAMILIES:
+def _require_ported(cfg: ModelConfig, verb: str) -> None:
+    if cfg.family not in DECODER_FAMILIES + RECURRENT_FAMILIES:
         raise NotImplementedError(
             f"{verb} for the {cfg.family!r} family is not ported (the port "
-            f"runs the decoder families {DECODER_FAMILIES}; ROADMAP.md "
-            f"queue 1 item 8)")
+            f"runs the families {DECODER_FAMILIES + RECURRENT_FAMILIES}; "
+            f"ROADMAP.md queue 1 item 8b)")
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device="cuda"):
-    _require_decoder(cfg, "init_model")
-    return transformer.init_model(cfg, generator=generator,
-                                  device=require_device(device))
+    _require_ported(cfg, "init_model")
+    device = require_device(device)
+    if cfg.family == "xlstm":
+        return recurrent.init_xlstm_model(cfg, generator=generator,
+                                          device=device)
+    if cfg.family == "zamba":
+        return recurrent.init_zamba_model(cfg, generator=generator,
+                                          device=device)
+    return transformer.init_model(cfg, generator=generator, device=device)
 
 
 def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
              device="cuda") -> Optional[dict]:
-    _require_decoder(cfg, "init_dsg")
+    _require_ported(cfg, "init_dsg")
+    device = require_device(device)
+    if cfg.family == "xlstm":
+        return recurrent.init_xlstm_dsg(model, cfg, generator=generator,
+                                        device=device)
+    if cfg.family == "zamba":
+        return recurrent.init_zamba_dsg(model, cfg, generator=generator,
+                                        device=device)
     return transformer.init_dsg(model, cfg, generator=generator,
-                                device=require_device(device))
+                                device=device)
 
 
 def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
-    _require_decoder(cfg, "refresh_dsg")
+    _require_ported(cfg, "refresh_dsg")
+    if cfg.family == "xlstm":
+        return recurrent.refresh_xlstm_dsg(dsg, model, cfg)
+    if cfg.family == "zamba":
+        return recurrent.refresh_zamba_dsg(dsg, model, cfg)
     return transformer.refresh_dsg(dsg, model, cfg)
 
 
 def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    _require_decoder(cfg, "train_loss")
+    _require_ported(cfg, "train_loss")
+    if cfg.family == "xlstm":
+        logits, _ = recurrent.xlstm_forward(model, dsg, cfg, batch["tokens"])
+        return transformer.cross_entropy(logits, batch["labels"])
+    if cfg.family == "zamba":
+        logits, _ = recurrent.zamba_forward(model, dsg, cfg, batch["tokens"])
+        return transformer.cross_entropy(logits, batch["labels"])
     return transformer.train_loss(model, dsg, cfg, batch)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device="cuda") -> dict:
-    _require_decoder(cfg, "make_cache")
-    return transformer.init_cache(cfg, batch, max_seq,
-                                  dtype or transformer.torch_dtype(cfg),
-                                  require_device(device))
+               device="cuda"):
+    _require_ported(cfg, "make_cache")
+    dt = dtype or transformer.torch_dtype(cfg)
+    device = require_device(device)
+    if cfg.family == "xlstm":
+        return None          # the state is built inside xlstm_forward
+    if cfg.family == "zamba":
+        return recurrent.init_zamba_cache(cfg, batch, max_seq, dt, device)
+    return transformer.init_cache(cfg, batch, max_seq, dt, device)
 
 
+def _refuse_serving_features(cfg: ModelConfig, what: str) -> None:
+    raise NotImplementedError(
+        f"{what} are decoder-family serving features (family "
+        f"{cfg.family!r})")
+
+
+@torch.no_grad()
 def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
             collect_drs_scores: bool = False):
-    _require_decoder(cfg, "prefill")
-    return transformer.prefill(model, dsg, cfg, inputs["tokens"], cache,
-                               prefix_embeds=inputs.get("prefix_embeds"),
-                               collect_drs_scores=collect_drs_scores)
+    """The prompt's last logits (B, V) and the decode state.  A zamba
+    prefill ignores `cache`, as the reference's does: its K/V come back
+    with the prompt's length, which decode then uses as a ring."""
+    _require_ported(cfg, "prefill")
+    if cfg.family in DECODER_FAMILIES:
+        return transformer.prefill(model, dsg, cfg, inputs["tokens"], cache,
+                                   prefix_embeds=inputs.get("prefix_embeds"),
+                                   collect_drs_scores=collect_drs_scores)
+    if collect_drs_scores:
+        _refuse_serving_features(cfg, "DRS score collection")
+    if cfg.family == "xlstm":
+        logits, st = recurrent.xlstm_forward(model, dsg, cfg,
+                                             inputs["tokens"], last_only=True)
+    else:
+        logits, st = recurrent.zamba_forward(model, dsg, cfg,
+                                             inputs["tokens"], state=None,
+                                             last_only=True)
+    return logits[:, -1], st
 
 
+@torch.no_grad()
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
                 live_pages=None, ffn_csr=None,
                 collect_drs_scores: bool = False):
-    _require_decoder(cfg, "decode_step")
-    return transformer.decode_step(model, dsg, cfg, token, cache, pos,
-                                   live_pages=live_pages, ffn_csr=ffn_csr,
-                                   collect_drs_scores=collect_drs_scores)
+    _require_ported(cfg, "decode_step")
+    if cfg.family in DECODER_FAMILIES:
+        return transformer.decode_step(model, dsg, cfg, token, cache, pos,
+                                       live_pages=live_pages,
+                                       ffn_csr=ffn_csr,
+                                       collect_drs_scores=collect_drs_scores)
+    if ffn_csr is not None or collect_drs_scores:
+        _refuse_serving_features(
+            cfg, "group-CSR decode / DRS score collection")
+    if cfg.family == "xlstm":
+        logits, st = recurrent.xlstm_forward(model, dsg, cfg, token,
+                                             state=cache)
+    else:
+        logits, st = recurrent.zamba_forward(model, dsg, cfg, token,
+                                             state=cache, pos0=pos)
+    return logits[:, -1], st
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +206,7 @@ def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
     np.random.default_rng(seed) and standard-normal embeddings from
     default_rng(seed + 1), each array drawn from a fresh generator; else
     shape-only tensors on the meta device."""
-    _require_decoder(cfg, "make_inputs")
+    _require_ported(cfg, "make_inputs")
     b, s = shape.global_batch, shape.seq_len
     dt = transformer.torch_dtype(cfg)
     device = require_device(device) if concrete else torch.device("meta")

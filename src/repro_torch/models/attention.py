@@ -5,7 +5,8 @@ Weights keep the reference layout: wq (d, H, D), wk/wv (d, Kv, D),
 wo (H, D, d).  Two cache kinds reach `self_attention`:
 
   * a dense cache {'k', 'v'} of (B, Smax, Kv, D), written in place: at
-    the int `cache_pos` onwards during prefill, at each lane's own
+    the int `cache_pos` onwards during prefill (and zamba's ring decode,
+    whose slots' positions `cache_kv_pos` gives), at each lane's own
     position of the (B,) `cache_pos` during decode;
   * the paged pools {'k', 'v'} of (P, ps, Kv, D) plus a page table during
     decode, updated in place by the paged executor.
@@ -160,6 +161,7 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
                    n_kv: int, rope_theta: float, q_pos: torch.Tensor,
                    causal: bool = True, window: int = 0,
                    cache: Optional[dict] = None, cache_pos=None,
+                   cache_kv_pos: Optional[torch.Tensor] = None,
                    page_table: Optional[torch.Tensor] = None,
                    live_pages: Optional[int] = None,
                    paged_kernel: str = "auto",
@@ -170,7 +172,11 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     Dense cache: with an int cache_pos (prefill) the new K/V go to
     positions cache_pos onwards and the tokens attend over the cache up to
     their end; with per-lane (B,) depths (decode, S == 1) each lane writes
-    at its depth and attends over the whole cache, causally masked.
+    at its depth and attends over the whole cache, causally masked.  With
+    `cache_kv_pos` (T,), the absolute position each slot holds (zamba's
+    ring), the new K/V go to the scalar cache_pos onwards, clamped into
+    the cache as the reference's dynamic_update_slice clamps it, and the
+    tokens attend over every slot at those positions.
     Paged decode (page_table given): cache holds one layer's page pools,
     cache_pos the per-lane (B,) int32 depths, S == 1.
     `ops.paged_decode_attention` (the CUDA kernel, or its plain bounded
@@ -200,6 +206,13 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
             v_new[:, 0].contiguous(), cache["k"], cache["v"], page_table,
             cache_pos, window=window, num_pages=live_pages or 0)
         return _out(o[:, None], p.wo), cache
+    elif cache_kv_pos is not None:
+        t = cache["k"].shape[1]
+        rows = (torch.as_tensor(cache_pos, device=x.device).long()
+                .clamp(0, t - s) + torch.arange(s, device=x.device))
+        cache["k"][:, rows] = k_new.to(cache["k"].dtype)
+        cache["v"][:, rows] = v_new.to(cache["v"].dtype)
+        k, v, kv_pos = cache["k"], cache["v"], cache_kv_pos
     elif torch.is_tensor(cache_pos):
         # per-lane dense decode: lane i writes its token at its own
         # position, then attends over the whole stripe under the causal

@@ -329,6 +329,13 @@ class ServingEngine:
                  page_size: int = 16, cache_tokens: Optional[int] = None,
                  seed: int = 0, dsg_serving=None, decode_chunk: int = 1,
                  prefix_sharing: bool = False):
+        if cfg.family not in api.DECODER_FAMILIES:
+            raise NotImplementedError(
+                f"ServingEngine serves the decoder families "
+                f"{api.DECODER_FAMILIES}, not {cfg.family!r}: the "
+                f"reference's engine crashes on the recurrent families "
+                f"(ROADMAP.md §3), which serve through "
+                f"repro_torch.launch.serve.generate")
         if admission not in ("overlap", "wave"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if decode_chunk < 1:

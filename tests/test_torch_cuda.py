@@ -1254,3 +1254,50 @@ def test_family_engine_streams_card_match_cpu_on_card(cuda, arch, backend,
                                  arch=arch)
     if chunk > 1:
         assert sum(eng.graphs.replays.values()) > 0
+
+
+# -- the recurrent families on the card ---------------------------------------
+
+def _recurrent_smoke(arch, device):
+    """`arch`'s smoke model (f32; DSG's per-row top-k threshold, as the
+    other card == CPU checks) built on the CPU from seed 0 and moved to
+    `device`."""
+    cfg = configs.get_smoke_config(arch)
+    cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk",
+                                           refresh_every=2))
+    gen = torch.Generator().manual_seed(0)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+    return cfg, model.to(device), {k: v.to(device) for k, v in dsg.items()}
+
+
+@pytest.mark.parametrize("prompt", [12, 24])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_recurrent_generate_card_matches_cpu_on_card(cuda, arch, prompt):
+    """`generate`'s greedy streams on the card equal the CPU's; 24 is past
+    zamba's smoke window of 16, so its ring and window mask both run."""
+    from repro_torch.launch import serve
+    prompts = torch.from_numpy(np.random.default_rng(prompt).integers(
+        0, 256, (2, prompt)))
+    streams = []
+    for device in (cuda, torch.device("cpu")):
+        cfg, model, dsg = _recurrent_smoke(arch, device)
+        streams.append(serve.generate(cfg, model, dsg, prompts.to(device),
+                                      8).cpu())
+    assert torch.equal(*streams)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_recurrent_training_steps_card_match_cpu_on_card(cuda, arch):
+    """Two training steps at smoke width in f32 (TF32 off): the card's
+    losses equal the CPU's to rtol 1e-5."""
+    from repro_torch.launch import train
+    losses = []
+    for device in (cuda, torch.device("cpu")):
+        cfg, model, dsg = _recurrent_smoke(arch, device)
+        _, hist, monitor = train.train(cfg, steps=2, global_batch=4,
+                                       seq_len=32, device=device,
+                                       init=(model, dsg))
+        assert monitor.failures == []
+        losses.append([h["loss"] for h in hist])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
