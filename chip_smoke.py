@@ -244,12 +244,39 @@ result line):
             Mamba2 blocks, every width kept: the full model's weights,
             gradients and f32 AdamW state take ≈ 104 GB) and the smoke
             model's 4 steps card == CPU.
+25. whisper — whisper-large-v3 at full width in bf16 (32 encoder + 32
+            decoder layers, d 1280, 20 heads of 64, F 5120, vocab 51872,
+            1.6 B parameters), random weights from a seeded
+            torch.Generator, DSG as the config sets it (mask mode, shared
+            threshold, gamma 0.5, block 128), after phase 24's memory is
+            freed.  (a) serve: `api.make_inputs`' 4 lanes x 1500 frames
+            (whisper's 30 s window) and 187 prompt tokens, the prefill
+            (encoder, memory K/V and decoder prompt timed apart, and
+            `api.prefill` whole) and 64 greedy `api.decode_step`s into
+            `make_cache(cfg, 4, 2048)`'s 256 decoder slots, twice: equal
+            streams and finite logits; TPOT p50/p95; a profiled decode
+            step's device time and launches against its byte bound (the
+            decoder's weights but the cross wk/wv, the LM head, f(W),
+            the memory K/V and the self cache) and the busy share; the
+            encoder's device time against its FLOP bound (its products at
+            989 TFLOP/s, its f32 scores at 67); peak memory.  (b) DSG off,
+            bf16 and an f32 model: prefill(186) + one decode step against
+            prefill(187), argmax held where the top-2 margin exceeds
+            twice the difference.  (d) 4 AdamW steps (bf16, f32 masters,
+            remat) of `api.train_loss` through `trainer_for` on one batch
+            of 4 x 1500 frames + 187 tokens: finite losses, the last below
+            the first; step ms, MFU (3 x the forward's FLOPs, attention
+            included, over 989 TFLOP/s), peak memory.  (c) in f32 with
+            TF32 off, the prefill's last logits card against CPU at full
+            width cut to 2 + 2 layers, 2 lanes, DSG on and off, within
+            WHISPER_CPU_ATOL; the smoke model's 8-token greedy stream card
+            == CPU.  None of the six kernels may launch in the phase.
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-then 6-9, 19 and 21-24; each prints its seconds.
+then 6-9, 19 and 21-25; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -2271,37 +2298,49 @@ def timed_generate(cfg, model, dsg, prompts, gen_tokens):
     return torch.stack(out, dim=1), prefill_s, steps, state, logits
 
 
-def profile_decode(cfg, model, dsg, logits, state, pos, active=3):
-    """Eager decode steps from (logits, state) at position pos under
-    torch.profiler, 2 warm-up steps then `active` traced ones, each ending
-    in a synchronize: busy() over the traced window, with the device
-    events and device ms per step."""
+def profile_calls(fn, active=3, warmup=2) -> dict:
+    """`warmup` calls of fn, then `active` traced ones under torch.profiler,
+    each ending in a synchronize: busy() over the traced window, with the
+    device events and device (busy) ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch.models import api
     traced = []
 
     def ready(prof):
-        # the trace of the active steps, read when it is ready: the
+        # the trace of the active calls, read when it is ready: the
         # profiler clears a cycle's events at its end
         b = busy(prof)
         if b is not None:
             traced.append(dict(b, events=sum(
                 1 for e in prof.events() if device_event(e))))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=active,
+                 schedule=schedule(wait=0, warmup=warmup, active=active,
                                    repeat=1), on_trace_ready=ready) as prof:
-        for i in range(2 + active):
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            logits, state = api.decode_step(model, dsg, cfg, tok, state,
-                                            pos + i)
+        for _ in range(warmup + active):
+            fn()
             torch.cuda.synchronize()
             prof.step()
     if not traced:
         return None
     b = traced[0]
-    return dict(b, events_per_step=b["events"] / active,
-                device_ms_per_step=b["busy_ms"] / active)
+    return dict(b, events_per_call=b["events"] / active,
+                device_ms_per_call=b["busy_ms"] / active)
+
+
+def profile_decode(cfg, model, dsg, logits, state, pos, active=3):
+    """`profile_calls` over eager decode steps from (logits, state) at
+    position pos, each feeding the last step's argmax: 2 warm-up steps
+    then `active` traced ones."""
+    import torch
+    from repro_torch.models import api
+    run = {"logits": logits, "state": state, "pos": pos}
+
+    def step():
+        tok = torch.argmax(run["logits"], dim=-1)[:, None]
+        run["logits"], run["state"] = api.decode_step(
+            model, dsg, cfg, tok, run["state"], run["pos"])
+        run["pos"] += 1
+    return profile_calls(step, active=active)
 
 
 def decode_bytes(model, dsg, state, lanes) -> int:
@@ -2425,6 +2464,22 @@ def recurrent_train(dev, cfg, tag, cut="", steps=12, batch=8, seq=256,
     return out
 
 
+def logit_agreement(want, got) -> dict:
+    """The largest |got - want| and whether the argmax agrees wherever
+    want's top-2 margin exceeds twice it (the repo's bf16 rule: elsewhere
+    rounding decides it)."""
+    import torch
+    top2 = torch.topk(want, 2, dim=-1).values
+    diff = float((want - got).abs().max())
+    equal = (want.argmax(-1) == got.argmax(-1)).tolist()
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    return {"max_abs_diff": diff, "argmax_equal": equal,
+            "top2_margin": margin,
+            "decided": [m > 2 * diff for m in margin],
+            "decided_equal": all(e for e, m in zip(equal, margin)
+                                 if m > 2 * diff)}
+
+
 def continuation(cfg, model, prompts) -> dict:
     """prefill(P - 1) and one decode step against prefill(P)'s last
     logits, DSG off: the config's shared DRS threshold is row 0 of
@@ -2436,24 +2491,12 @@ def continuation(cfg, model, prompts) -> dict:
     f32 logits move by 0.8 under a 1e-7 relative weight perturbation), and
     a prefill of 127 tokens rounds every token unlike one of 128 (the
     GEMMs' blocking follows the shape)."""
-    import torch
     from repro_torch.models import api
     p = prompts.shape[1]
     full, _ = api.prefill(model, None, cfg, {"tokens": prompts}, None)
     _, st = api.prefill(model, None, cfg, {"tokens": prompts[:, :-1]}, None)
     step, _ = api.decode_step(model, None, cfg, prompts[:, -1:], st, p - 1)
-    full, step = full.float(), step.float()
-    top2 = torch.topk(full, 2, dim=-1).values
-    diff = float((full - step).abs().max())
-    equal = (full.argmax(-1) == step.argmax(-1)).tolist()
-    margin = (top2[:, 0] - top2[:, 1]).tolist()
-    # the repo's bf16 rule: argmax equal wherever the top-2 margin exceeds
-    # twice the largest difference (elsewhere rounding decides it)
-    return {"max_abs_diff": diff, "argmax_equal": equal,
-            "top2_margin": margin,
-            "decided": [m > 2 * diff for m in margin],
-            "decided_equal": all(e for e, m in zip(equal, margin)
-                                 if m > 2 * diff)}
+    return logit_agreement(full.float(), step.float())
 
 
 def recurrent_phase(dev, arch) -> dict:
@@ -2517,12 +2560,12 @@ def recurrent_phase(dev, arch) -> dict:
         "first_row": first[0, :8].tolist()}
     g = out["generate"]
     dev_line = ("device time not measured (no device events)" if prof is None
-                else f"{prof['events_per_step']:.0f} device events (launches) "
-                     f"a step; one step {prof['device_ms_per_step']:.3f} ms "
+                else f"{prof['events_per_call']:.0f} device events (launches) "
+                     f"a step; one step {prof['device_ms_per_call']:.3f} ms "
                      f"on the device against its byte bound "
                      f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB at "
                      f"3.35 TB/s): "
-                     f"{prof['device_ms_per_step'] / bound_ms:.2f}x; device "
+                     f"{prof['device_ms_per_call'] / bound_ms:.2f}x; device "
                      f"busy {100 * prof['busy_share']:.1f}% of the traced "
                      f"window; top "
                      f"{[(k['name'][:40], round(k['ms'], 2)) for k in prof['by_kernel'][:4]]}")
@@ -2607,6 +2650,429 @@ def recurrent_phase(dev, arch) -> dict:
     out["kernel_launches"] = {n: w.launches for n, w in kernels.items()}
     print(f"[{tag}] the port's kernels launched in this phase: "
           f"{out['kernel_launches']} (none lies on this path)", flush=True)
+    return out
+
+
+# -- phase 25: the encoder-decoder family at full width ----------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+# 4 lanes of whisper's 30 s window (1500 frames) and 1500 // 8 = 187 prompt
+# tokens; make_cache's max_seq 2048 gives 2048 // 8 = 256 decoder slots
+WHISPER_LANES, WHISPER_FRAMES, WHISPER_GEN = 4, 1500, 64
+WHISPER_MAX_SEQ = 2048
+# (c): 2 + 2 layers at full width, 2 lanes, card against CPU in f32 (TF32
+# off).  The largest |card - CPU| of the prefill's last logits measured
+# 5.96e-6 with DSG on and off (an H100 80GB HBM3); the atol is the f32
+# kernels' 1e-4 (TOL), and the argmax must agree wherever the CPU's top-2
+# margin exceeds twice it
+WHISPER_CPU_LAYERS, WHISPER_CPU_LANES = 2, 2
+WHISPER_CPU_ATOL = TOL["torch.float32"][1]
+
+
+def whisper_inputs(cfg, lanes, frames, kind, device):
+    """`api.make_inputs`' concrete batch (frames from default_rng(SEED +
+    1), tokens from default_rng(SEED)) for `lanes` x `frames`."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    return api.make_inputs(cfg, ShapeConfig("whisper", frames, lanes, kind),
+                           concrete=True, seed=SEED, device=device)
+
+
+def whisper_flops(cfg, lanes, frames, tokens, slots=None, head_rows=None):
+    """Forward FLOPs of the encoder over `frames`, the memory K/V and the
+    decoder over `tokens` (attending `slots` cached positions, or the
+    tokens causally counted in full when None), split by the type they run
+    in: {'encoder': (model dtype, f32), 'memory': ..., 'decoder': ...}.
+    Products in the model's dtype; attention scores and P·V in f32 (every
+    whisper score is f32); the DRS search (f(x) = x R^T, f(x) f(W)) in the
+    model's dtype when DSG is on.  head_rows: rows through the LM head
+    (all tokens by default; the prefill's last token only)."""
+    from repro_torch.core import dsg_linear as dl
+    d, f, h, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    hd, kvd = h * dh, cfg.n_kv * dh
+    n_enc = cfg.enc_layers or cfg.n_layers
+    k = dl.proj_dim(d, f, cfg.dsg) if cfg.dsg.enabled else 0
+    drs = 2 * (d * k + k * f)
+    per_frame = d * hd + 2 * d * kvd + hd * d + 2 * d * f
+    enc = (n_enc * lanes * frames * (2 * per_frame + drs),
+           n_enc * 4 * lanes * h * frames * frames * dh)
+    mem = (cfg.n_layers * lanes * frames * 2 * 2 * d * kvd, 0)
+    keys = tokens if slots is None else slots
+    per_tok = 2 * (d * hd + 2 * d * kvd + hd * d + 2 * d * hd + 2 * d * f)
+    head = 2 * d * cfg.vocab * lanes * (tokens if head_rows is None
+                                        else head_rows)
+    dec = (cfg.n_layers * lanes * tokens * (per_tok + drs) + head,
+           cfg.n_layers * 4 * lanes * h * tokens * (keys + frames) * dh)
+    return {"encoder": enc, "memory": mem, "decoder": dec}
+
+
+def flops_ms(flops, dtype) -> float:
+    """The least time of (model-dtype, f32) FLOPs at the card's peak rate
+    for each type."""
+    return 1e3 * (flops[0] / PEAK_FLOPS[str(dtype)]
+                  + flops[1] / PEAK_FLOPS["torch.float32"])
+
+
+def whisper_step_bytes(model, dsg, state, lanes) -> int:
+    """The bytes one decode step must move: the decoder's weights but the
+    cross-attention's wk and wv (the memory K/V are precomputed), ln_dec,
+    the LM head and `lanes` embedding rows, R and f(W) of the decoder, the
+    memory K/V, and the self cache read once (the step attends every
+    slot) with one row a layer written."""
+    emb = model.tok_embed
+    weights = [p for n, p in model.named_parameters()
+               if n.startswith(("dec_layers.", "ln_dec.", "lm_head"))
+               and ".cross.wk" not in n and ".cross.wv" not in n]
+    dsg_b = nbytes([dsg["r"], dsg["fw_dec"]]) if dsg else 0
+    return (nbytes(weights) + lanes * emb.shape[1] * emb.element_size()
+            + dsg_b + nbytes(state["memory"].values())
+            + nbytes(state["self"].values()))
+
+
+def whisper_generate(cfg, model, dsg, inputs, gen_tokens, max_seq):
+    """Prefill (its encoder, memory K/V and decoder prompt timed apart,
+    each ending in a synchronize) and `gen_tokens` greedy decode steps
+    through `api.decode_step`: (tokens (B, gen), the prefill's phases in
+    seconds, each step's seconds, the last logits, the state)."""
+    import torch
+    from repro_torch.models import api, encdec
+    b, p_len = inputs["tokens"].shape
+    cache = api.make_cache(cfg, b, max_seq, device=inputs["frames"].device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encdec.encode(model, dsg, cfg, inputs["frames"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mem = encdec.build_memory_kv(model, enc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits, cache = encdec.decode(model, dsg, cfg, inputs["tokens"], mem,
+                                      cache=cache, pos0=0, last_only=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    del enc
+    logits, state = logits[:, -1], {"self": cache, "memory": mem}
+    # the split prefill is api.prefill's composition, held to it below
+    phases = {"encoder_s": t1 - t0, "memory_kv_s": t2 - t1,
+              "decoder_prompt_s": t3 - t2}
+    out, steps = [], []
+    for i in range(gen_tokens):
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+        t0 = time.perf_counter()
+        logits, state = api.decode_step(model, dsg, cfg, tok[:, None], state,
+                                        p_len + i)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return torch.stack(out, dim=1), phases, steps, logits, state
+
+
+def whisper_continuation(cfg, model, inputs, max_seq) -> dict:
+    """DSG off: prefill(P - 1) and one decode step against prefill(P)'s
+    last logits (the argmax held where the top-2 margin exceeds twice the
+    largest difference, `continuation`'s rule)."""
+    from repro_torch.models import api
+    b, p = inputs["tokens"].shape
+    dev = inputs["frames"].device
+    full, _ = api.prefill(model, None, cfg, inputs,
+                          api.make_cache(cfg, b, max_seq, device=dev))
+    _, st = api.prefill(model, None, cfg, dict(
+        inputs, tokens=inputs["tokens"][:, :-1]),
+        api.make_cache(cfg, b, max_seq, device=dev))
+    step, _ = api.decode_step(model, None, cfg, inputs["tokens"][:, -1:], st,
+                              p - 1)
+    return logit_agreement(full.float(), step.float())
+
+
+def whisper_cpu_check(dev) -> dict:
+    """(c) in f32 with TF32 off: the prefill's last logits on the card
+    against the CPU at full width cut to WHISPER_CPU_LAYERS + ..., DSG on
+    (the config's) and off; and the smoke model's greedy stream (per-row
+    top-k threshold, as the other card == CPU checks) card == CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    full = configs.get_config(WHISPER_ARCH).replace(
+        n_layers=WHISPER_CPU_LAYERS, enc_layers=WHISPER_CPU_LAYERS,
+        dtype="float32")
+    out = {}
+    for tag, cfg in (("dsg_on", full), ("dsg_off", full.replace(
+            dsg=full.dsg._replace(enabled=False)))):
+        gen = torch.Generator().manual_seed(SEED)
+        model = api.init_model(cfg, generator=gen, device="cpu")
+        dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+        inputs = whisper_inputs(cfg, WHISPER_CPU_LANES, WHISPER_FRAMES,
+                                "prefill", "cpu")
+        cpu, _ = api.prefill(model, dsg, cfg, inputs, api.make_cache(
+            cfg, WHISPER_CPU_LANES, WHISPER_MAX_SEQ, device="cpu"))
+        model = model.to(dev)
+        dsg = None if dsg is None else {k: v.to(dev) for k, v in dsg.items()}
+        card, _ = api.prefill(model, dsg, cfg,
+                              {k: v.to(dev) for k, v in inputs.items()},
+                              api.make_cache(cfg, WHISPER_CPU_LANES,
+                                             WHISPER_MAX_SEQ, device=dev))
+        agree = logit_agreement(cpu, card.cpu())
+        agree["argmax_held"] = all(
+            e for e, m in zip(agree["argmax_equal"], agree["top2_margin"])
+            if m > 2 * WHISPER_CPU_ATOL)
+        out[tag] = agree
+        print(f"[whisper] (c) {tag}: card against CPU {agree}", flush=True)
+        del model, dsg
+    smoke = {}
+    for device in (dev, torch.device("cpu")):
+        cfg = configs.get_smoke_config(WHISPER_ARCH)
+        cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+        gen = torch.Generator().manual_seed(SEED)
+        model = api.init_model(cfg, generator=gen, device="cpu")
+        dsg = {k: v.to(device) for k, v in api.init_dsg(
+            model, cfg, generator=gen, device="cpu").items()}
+        model = model.to(device)
+        inputs = whisper_inputs(cfg, 2, 64, "prefill", device)
+        logits, st = api.prefill(model, dsg, cfg, inputs,
+                                 api.make_cache(cfg, 2, 128, device=device))
+        toks = []
+        for i in range(8):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            toks.append(tok[:, 0].tolist())
+            logits, st = api.decode_step(model, dsg, cfg, tok, st,
+                                         inputs["tokens"].shape[1] + i)
+        smoke[device.type] = toks
+    out["smoke_streams_equal"] = smoke[dev.type] == smoke["cpu"]
+    out["smoke_stream"] = smoke["cpu"]
+    return out
+
+
+def whisper_train(dev, cfg, model, dsg, steps=4) -> dict:
+    """(d) `steps` AdamW steps (bf16 weights, f32 masters, remat) of
+    `api.train_loss` through `launch.train.trainer_for` on one fixed batch
+    of WHISPER_LANES x WHISPER_FRAMES frames and WHISPER_FRAMES // 8
+    tokens."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    batch = whisper_inputs(cfg, WHISPER_LANES, WHISPER_FRAMES, "train", dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, _ = train.trainer_for(
+        model, dsg, cfg, adamw.AdamWConfig(warmup=2, total_steps=steps))
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))     # reads the step back
+        ms.append(1e3 * (time.perf_counter() - t0))
+    tokens = batch["tokens"].shape[1]
+    fl = whisper_flops(cfg, WHISPER_LANES, WHISPER_FRAMES, tokens)
+    model_flops = 3 * sum(sum(v) for v in fl.values())
+    timed = sorted(ms[1:])
+    p50 = timed[len(timed) // 2]
+    return {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+            "model_tflop_per_step": model_flops / 1e12,
+            "mfu": model_flops / (p50 / 1e3) / PEAK_FLOPS["torch.bfloat16"],
+            "master": "master" in state["opt"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def whisper_phase(dev) -> dict:
+    """Phase 25: whisper-large-v3 at full width in bf16 with random weights
+    from SEED and DSG as the config sets it.  See the module docstring."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    from repro_torch.models import api, encdec
+    tag = "whisper"
+    cfg = configs.get_config(WHISPER_ARCH)
+    kernels = dict({n: k[0] for n, k in serve_kernels().items()},
+                   dsg_ffn=dsg_ffn.dsg_ffn,
+                   flash_attention=flash_attention.flash_attention)
+    for w in kernels.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"arch": WHISPER_ARCH,
+           "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+           "weights_gb": nbytes(model.parameters()) / 1e9,
+           "dsg_gb": nbytes(dsg.values()) / 1e9,
+           "init_s": time.perf_counter() - t0}
+    print(f"[{tag}] {WHISPER_ARCH}: {cfg.enc_layers} + {cfg.n_layers} "
+          f"layers, d={cfg.d_model}, {cfg.n_heads} heads, F={cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {out['params_b']:.3f}B params = "
+          f"{out['weights_gb']:.3f} GB in {cfg.dtype}; DSG {cfg.dsg.mode} "
+          f"gamma {cfg.dsg.gamma} {cfg.dsg.threshold_mode} threshold, k "
+          f"{dsg['r'].shape[0]}, {out['dsg_gb']:.3f} GB; init "
+          f"{out['init_s']:.2f}s", flush=True)
+
+    # (a) serve: prefill and 64 greedy tokens, twice
+    t1 = time.perf_counter()
+    inputs = whisper_inputs(cfg, WHISPER_LANES, WHISPER_FRAMES, "prefill",
+                            dev)
+    p_len = inputs["tokens"].shape[1]
+    first, _, _, _, _ = whisper_generate(cfg, model, dsg, inputs,
+                                         WHISPER_GEN, WHISPER_MAX_SEQ)
+    second, phases, steps_s, logits, state = whisper_generate(
+        cfg, model, dsg, inputs, WHISPER_GEN, WHISPER_MAX_SEQ)
+    equal = torch.equal(first, second)
+    finite = bool(torch.isfinite(logits.float()).all())
+    # the split prefill against api.prefill's own
+    whole, _ = api.prefill(model, dsg, cfg, inputs, api.make_cache(
+        cfg, WHISPER_LANES, WHISPER_MAX_SEQ, device=dev))
+    split_equal = torch.equal(torch.argmax(whole, -1), first[:, 0])
+    ms = sorted(1e3 * x for x in steps_s)
+    slots = state["self"]["k"].shape[2]
+    step_bytes = whisper_step_bytes(model, dsg, state, WHISPER_LANES)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    prof = profile_decode(cfg, model, dsg, logits, state,
+                          p_len + WHISPER_GEN)
+    with torch.no_grad():
+        enc = encdec.encode(model, dsg, cfg, inputs["frames"])
+        enc_prof = profile_calls(lambda: encdec.encode(
+            model, dsg, cfg, inputs["frames"]), active=2, warmup=1)
+        mem_prof = profile_calls(lambda: encdec.build_memory_kv(model, enc),
+                                 active=2, warmup=1)
+        del enc
+    dt = next(model.parameters()).dtype
+    fl = whisper_flops(cfg, WHISPER_LANES, WHISPER_FRAMES, p_len,
+                       slots=slots, head_rows=1)
+    enc_bound = flops_ms(fl["encoder"], dt)
+    out["serve"] = {
+        "streams_equal": equal, "finite": finite,
+        "prefill_first_token_equal": split_equal,
+        "prompt_tokens": p_len, "decoder_slots": slots,
+        "prefill_ms": {k[:-2] + "_ms": 1e3 * v for k, v in phases.items()},
+        "tpot_p50_ms": ms[len(ms) // 2],
+        "tpot_p95_ms": ms[min(len(ms) - 1, int(round(0.95 * (len(ms) - 1))))],
+        "decode_tok_per_s": WHISPER_LANES * WHISPER_GEN / sum(steps_s),
+        "step_bound_gb": step_bytes / 1e9, "step_bound_ms": step_bound,
+        "memory_kv_gb": nbytes(state["memory"].values()) / 1e9,
+        "self_cache_gb": nbytes(state["self"].values()) / 1e9,
+        "decode_profile": prof, "encoder_profile": enc_prof,
+        "memory_kv_profile": mem_prof,
+        "encoder_tflop": {"model_dtype": fl["encoder"][0] / 1e12,
+                          "f32": fl["encoder"][1] / 1e12},
+        "encoder_bound_ms": enc_bound,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_row": first[0, :8].tolist()}
+    s = out["serve"]
+    dev_line = ("device time not measured (no device events)" if prof is None
+                else f"{prof['events_per_call']:.0f} device events "
+                     f"(launches) a step; one step "
+                     f"{prof['device_ms_per_call']:.3f} ms on the device "
+                     f"against its byte bound {step_bound:.3f} ms "
+                     f"({step_bytes / 1e9:.3f} GB at 3.35 TB/s): "
+                     f"{prof['device_ms_per_call'] / step_bound:.2f}x; "
+                     f"device busy {100 * prof['busy_share']:.1f}% of the "
+                     f"traced window; top "
+                     f"{[(k['name'][:40], round(k['ms'], 2)) for k in prof['by_kernel'][:4]]}")
+    enc_line = ("encoder device time not measured" if enc_prof is None
+                else f"encoder {enc_prof['device_ms_per_call']:.2f} ms on "
+                     f"the device ({enc_prof['events_per_call']:.0f} "
+                     f"launches, busy {100 * enc_prof['busy_share']:.1f}%) "
+                     f"against its FLOP bound {enc_bound:.2f} ms "
+                     f"({fl['encoder'][0] / 1e12:.2f} TFLOP in {cfg.dtype} "
+                     f"at 989 TFLOP/s + {fl['encoder'][1] / 1e12:.2f} TFLOP "
+                     f"of f32 scores at 67 TFLOP/s): "
+                     f"{enc_prof['device_ms_per_call'] / enc_bound:.2f}x")
+    pm = s["prefill_ms"]
+    if mem_prof is not None:
+        enc_line += (f"; memory K/V {mem_prof['device_ms_per_call']:.2f} ms "
+                     f"on the device ({mem_prof['events_per_call']:.0f} "
+                     f"launches) against its FLOP bound "
+                     f"{flops_ms(fl['memory'], dt):.2f} ms")
+    print(f"[{tag}] (a) serve {WHISPER_LANES} x {WHISPER_FRAMES} frames + "
+          f"{p_len} prompt tokens, {WHISPER_GEN} greedy tokens, twice "
+          f"({slots} decoder slots): streams equal {equal}, logits finite "
+          f"{finite}; prefill {sum(pm.values()):.1f} ms = encoder "
+          f"{pm['encoder_ms']:.1f} + memory K/V {pm['memory_kv_ms']:.1f} + "
+          f"decoder prompt {pm['decoder_prompt_ms']:.1f}; {enc_line}; eager "
+          f"TPOT p50 {s['tpot_p50_ms']:.2f} ms p95 {s['tpot_p95_ms']:.2f} "
+          f"ms; decode {s['decode_tok_per_s']:.1f} tok/s; memory K/V "
+          f"{s['memory_kv_gb']:.3f} GB, self cache {s['self_cache_gb']:.3f} "
+          f"GB; {dev_line}; peak allocated {s['peak_gb']:.2f} GB; "
+          f"{time.perf_counter() - t1:.2f}s", flush=True)
+    if not (equal and finite and split_equal):
+        fail(f"{tag}: serve: streams equal {equal}, finite {finite}, "
+             f"api.prefill's first token equal {split_equal}")
+    del first, second, logits, state, whole
+
+    # (b) decode continues the prefill, DSG off, bf16 and f32
+    t1 = time.perf_counter()
+    cont = whisper_continuation(cfg, model, inputs, WHISPER_MAX_SEQ)
+    f32 = cfg.replace(dtype="float32")
+    m32 = api.init_model(f32, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    cont32 = whisper_continuation(f32, m32, {
+        "frames": inputs["frames"].float(), "tokens": inputs["tokens"]},
+        WHISPER_MAX_SEQ)
+    del m32
+    out["continuation"] = {"bf16": cont, "f32": cont32}
+    print(f"[{tag}] (b) prefill({p_len - 1}) + one decode step against "
+          f"prefill({p_len}), DSG off: bf16 max abs diff "
+          f"{cont['max_abs_diff']:.4g}, argmax equal {cont['argmax_equal']}, "
+          f"top-2 margins {[round(m, 4) for m in cont['top2_margin']]} "
+          f"(decided {cont['decided']}); f32 max abs diff "
+          f"{cont32['max_abs_diff']:.3g}, argmax equal "
+          f"{cont32['argmax_equal']}, top-2 margins "
+          f"{[round(m, 4) for m in cont32['top2_margin']]} (decided "
+          f"{cont32['decided']}); {time.perf_counter() - t1:.2f}s",
+          flush=True)
+    if not (cont["decided_equal"] and cont32["decided_equal"]):
+        fail(f"{tag}: decode does not continue the prefill: {cont}, f32 "
+             f"{cont32}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) train on the same model (its weights are not needed afterwards)
+    t1 = time.perf_counter()
+    tr = whisper_train(dev, cfg, model, dsg)
+    out["train"] = tr
+    print(f"[{tag}] (d) train: {out['params_b']:.3f}B params in bf16 with "
+          f"f32 masters {tr['master']}, DSG {cfg.dsg.mode}, remat, one batch "
+          f"of {WHISPER_LANES} x {WHISPER_FRAMES} frames + "
+          f"{WHISPER_FRAMES // cfg.dec_ratio} tokens, 4 AdamW steps: losses "
+          f"{[round(x, 4) for x in tr['losses']]}; step ms "
+          f"{[round(x, 1) for x in tr['step_ms']]}, p50 of steps 2-4 "
+          f"{tr['step_ms_p50']:.1f}; MFU {100 * tr['mfu']:.2f}% (3 x the "
+          f"forward's {tr['model_tflop_per_step'] / 3:.2f} TFLOP, "
+          f"attention included, / step / 989 TFLOP/s); peak allocated "
+          f"{tr['peak_gb']:.2f} GB; {time.perf_counter() - t1:.2f}s",
+          flush=True)
+    if not (all(math.isfinite(x) for x in tr["losses"])
+            and tr["losses"][-1] < tr["losses"][0]):
+        fail(f"{tag}: training losses {tr['losses']}")
+    del model, dsg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU
+    t1 = time.perf_counter()
+    chk = whisper_cpu_check(dev)
+    out["cpu_check"] = chk
+    print(f"[{tag}] (c) card against CPU in f32, TF32 off, "
+          f"{WHISPER_CPU_LAYERS} + {WHISPER_CPU_LAYERS} layers at full "
+          f"width, {WHISPER_CPU_LANES} x {WHISPER_FRAMES} frames: prefill "
+          f"logits max abs diff DSG on {chk['dsg_on']['max_abs_diff']:.3g}, "
+          f"DSG off {chk['dsg_off']['max_abs_diff']:.3g} (atol "
+          f"{WHISPER_CPU_ATOL}); argmax equal "
+          f"{chk['dsg_on']['argmax_equal']} / "
+          f"{chk['dsg_off']['argmax_equal']}; smoke greedy stream card == "
+          f"CPU {chk['smoke_streams_equal']}; "
+          f"{time.perf_counter() - t1:.2f}s", flush=True)
+    for k in ("dsg_on", "dsg_off"):
+        if not (chk[k]["max_abs_diff"] <= WHISPER_CPU_ATOL
+                and chk[k]["argmax_held"]):
+            fail(f"{tag}: card against CPU {k}: {chk[k]}")
+    if not chk["smoke_streams_equal"]:
+        fail(f"{tag}: the smoke stream on the card differs from the CPU")
+    out["kernel_launches"] = {n: w.launches for n, w in kernels.items()}
+    print(f"[{tag}] the port's kernels launched in this phase: "
+          f"{out['kernel_launches']} (none lies on this path)", flush=True)
+    if any(out["kernel_launches"].values()):
+        fail(f"{tag}: a kernel launched on a path that has none")
     return out
 
 
@@ -3122,6 +3588,14 @@ def main() -> int:
         rec = recurrent_phase(dev, arch)
         print(f"[{arch}] stats " + json.dumps(rec), flush=True)
         print(f"[phase {phase}] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 25. the encoder-decoder family at full width, on freed memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whisper = whisper_phase(dev)
+    print(f"[{WHISPER_ARCH}] stats " + json.dumps(whisper), flush=True)
+    print(f"[phase 25] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

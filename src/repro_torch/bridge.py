@@ -5,7 +5,9 @@ replay, so a parity test builds them there, converts every leaf to numpy
 (`jax.tree.map(np.asarray, params)`) and hands the nested dicts here.  The
 reference stacks per-block leaves for lax.scan: (L, ...) under `layers`
 for a decoder, (G, n_m, ...) under `mlstm` and (G, ...) under `slstm` for
-xLSTM, (G, every, ...) under `mamba` for Zamba2.  The port keeps one
+xLSTM, (G, every, ...) under `mamba` for Zamba2, (L_enc, ...) under
+`enc_layers` and (L_dec, ...) under `dec_layers` for the encoder-decoder.
+The port keeps one
 module per block in (nested) ModuleLists, whose parameter names carry the
 indices (`layers.3.attn.wq`, `mlstm.1.2.core.w_qkv`), so the stacks are
 split along their leading axes.  Each leaf keeps its own dtype (the
@@ -13,7 +15,10 @@ recurrent cores' gate weights, a_log, dt_bias, d_skip, r_diag and bias are
 f32 in a bf16 model).  The DSG state keeps its stacked leaves in both
 packages (fw (L, k, F); an MoE's fw_experts and fw_shared; xLSTM's fw_m
 (G, n_m, k, d) and fw_s (G, k, d); Zamba2's fw_z (G, every, k, d_in) and
-fw_shared (k, F)).
+fw_shared (k, F); the encoder-decoder's fw_enc (L_enc, k, F) and fw_dec
+(L_dec, k, F)).  `dsg_from_jax` also carries the flat dicts of
+`repro.core.conv_dsg.init_conv_dsg` ({'w', 'r', 'fw'}) and
+`repro.core.logit_dsg.init_logit_dsg` ({'r', 'fw'}).
 
 The other way, `state_tree` lays the trainer's state (model, DSG state,
 AdamW state, error feedback) out as the reference's tree: per-block leaves
@@ -33,7 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsg_linear import DSGConfig
-from repro_torch.models import recurrent, transformer
+from repro_torch.models import encdec, recurrent, transformer
 from repro_torch.models.api import require_device
 from repro_torch.models.transformer import set_trainable
 
@@ -49,15 +54,16 @@ def tensor(a, device=None) -> torch.Tensor:
 
 def model_from_jax(params: dict, cfg, device="cuda", trainable: bool = False):
     """A `repro.models.api.init_model` pytree -> the port's module for
-    cfg.family (Transformer, XLSTMModel or ZambaModel), on the card unless
-    `device` says otherwise; `trainable` turns requires_grad on.  The
-    module is built on the meta device (shapes only) and each parameter
-    replaced by its leaf of `params`, which must hold exactly the module's
-    leaves."""
+    cfg.family (Transformer, XLSTMModel, ZambaModel or EncDecModel), on
+    the card unless `device` says otherwise; `trainable` turns
+    requires_grad on.  The module is built on the meta device (shapes
+    only) and each parameter replaced by its leaf of `params`, which must
+    hold exactly the module's leaves."""
     device = require_device(device)
     init = {"xlstm": recurrent.init_xlstm_model,
-            "zamba": recurrent.init_zamba_model}.get(cfg.family,
-                                                    transformer.init_model)
+            "zamba": recurrent.init_zamba_model,
+            "encdec": encdec.init_model}.get(cfg.family,
+                                             transformer.init_model)
     model = init(cfg, generator=None, device="meta")
     names = [n for n, _ in model.named_parameters()]
     want = {_split(n)[0] for n in names}
@@ -90,9 +96,9 @@ def config_from_jax(ref_cfg) -> ModelConfig:
 
 
 def dsg_from_jax(dsg: Optional[dict], device="cuda") -> Optional[dict]:
-    """A `repro.models.transformer.init_dsg` state -> the same leaves ('r'
-    and 'fw', or 'fw_experts' and 'fw_shared') as tensors, on the card
-    unless `device` says otherwise."""
+    """A reference DSG state (any family's `init_dsg`, or the flat dicts of
+    `init_conv_dsg` and `init_logit_dsg`) -> the same leaves as tensors,
+    on the card unless `device` says otherwise."""
     device = require_device(device)
     if dsg is None:
         return None

@@ -1,9 +1,8 @@
 """Architecture registry: --arch <id> resolves here.
 
-The seven archs of the decoder families (dense, moe, vlm) and the two of
-the recurrent families (xlstm-350m, and the zamba2-7b hybrid) are ported;
-the encoder-decoder arch whisper-large-v3 is not yet (ROADMAP.md queue 1
-item 8)."""
+Every arch of the reference is ported: the seven of the decoder families
+(dense, moe, vlm), the two of the recurrent families (xlstm-350m, and the
+zamba2-7b hybrid) and the encoder-decoder whisper-large-v3."""
 from repro_torch.configs import (
     deepseek_moe_16b,
     internlm2_1_8b,
@@ -12,6 +11,7 @@ from repro_torch.configs import (
     llava_next_34b,
     mistral_nemo_12b,
     phi3_mini_3_8b,
+    whisper_large_v3,
     xlstm_350m,
     zamba2_7b,
 )
@@ -21,8 +21,8 @@ from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
 
 _MODULES = (
     mistral_nemo_12b, internlm2_1_8b, llama3_2_3b, phi3_mini_3_8b,
-    deepseek_moe_16b, llama4_scout_17b_a16e, llava_next_34b, xlstm_350m,
-    zamba2_7b,
+    deepseek_moe_16b, llama4_scout_17b_a16e, xlstm_350m, llava_next_34b,
+    whisper_large_v3, zamba2_7b,
 )
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
@@ -30,8 +30,8 @@ ARCHS = {m.ARCH_ID: m for m in _MODULES}
 
 def _arch(arch_id: str):
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ported: "
-                       f"{sorted(ARCHS)}; see ROADMAP.md queue 1 item 8)")
+        raise KeyError(f"unknown arch {arch_id!r} (known: "
+                       f"{sorted(ARCHS)})")
     return ARCHS[arch_id]
 
 

@@ -1,9 +1,9 @@
 """Model config schema (the port's copy of `repro.configs.base.ModelConfig`).
 
 Every field of the reference is kept so a config compares field for field
-with its JAX counterpart.  The port runs the decoder families (dense, moe,
-vlm) and the recurrent ones (xlstm, zamba); the encoder-decoder fields
-(enc_layers, dec_ratio) are carried as data only.
+with its JAX counterpart.  The port runs every family: the decoder ones
+(dense, moe, vlm), the recurrent ones (xlstm, zamba) and the
+encoder-decoder one (encdec).
 """
 from __future__ import annotations
 

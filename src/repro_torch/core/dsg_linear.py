@@ -1,7 +1,11 @@
-"""DSG-sparsified SwiGLU FFN (the port of `repro.core.dsg_linear`).
+"""DSG-sparsified SwiGLU and GELU FFNs (the port of
+`repro.core.dsg_linear`).
 
 Weights keep the reference layout: w_gate/w_up (d, F), w_down (F, d); the
-DSG group dim is F split into G = F/block groups.  Paths:
+DSG group dim is F split into G = F/block groups.  The GELU FFN
+(whisper's; `gelu_ffn`) has no gate and runs its DRS search against w_up,
+in the same three modes as `swiglu_ffn` (dense, mask, gather_shared), with
+the tanh GELU of the reference's `jax.nn.gelu`.  The SwiGLU paths:
 
   * `swiglu_dense`      — no DSG.
   * `swiglu_dsg_mask`   — paper-faithful per-token mask: DRS selects groups
@@ -74,10 +78,28 @@ def init_swiglu(d: int, f: int, *, generator: torch.Generator,
                   normal((f, d), 1.0 / math.sqrt(f)))
 
 
-def search_weight(p: SwiGLU) -> torch.Tensor:
-    """The weight DRS estimates against: the gate path, whose SiLU
-    argument decides the activation's magnitude."""
-    return p.w_gate
+class GeluFFN(nn.Module):
+    """GELU FFN weights: w_up (d, F), w_down (F, d)."""
+
+    def __init__(self, w_up: torch.Tensor, w_down: torch.Tensor):
+        super().__init__()
+        self.w_up = nn.Parameter(w_up, requires_grad=False)
+        self.w_down = nn.Parameter(w_down, requires_grad=False)
+
+
+def init_gelu_ffn(d: int, f: int, *, generator: torch.Generator,
+                  dtype: torch.dtype, device=None) -> GeluFFN:
+    def normal(shape, fan):
+        return (torch.randn(shape, generator=generator, device=device)
+                / math.sqrt(fan)).to(dtype)
+    return GeluFFN(normal((d, f), d), normal((f, d), f))
+
+
+def search_weight(p) -> torch.Tensor:
+    """The weight DRS estimates against: the gate path if there is one
+    (its SiLU argument decides the activation's magnitude), else the up
+    path."""
+    return p.w_gate if hasattr(p, "w_gate") else p.w_up
 
 
 def init_dsg_state(d: int, f: int, cfg: DSGConfig, w_search: torch.Tensor,
@@ -127,6 +149,15 @@ def shared_topk_indices(x: torch.Tensor, state: dict, cfg: DSGConfig,
     return torch.sort((local + base[:, None]).reshape(-1)).values.detach()
 
 
+def _gather_blocks(p, idx: torch.Tensor, block: int):
+    """The kept groups' (K', d, b) blocks of w_up and (K', b, d) of
+    w_down."""
+    d, f = p.w_up.shape
+    wu = p.w_up.reshape(d, f // block, block).transpose(0, 1)[idx]
+    wd = p.w_down.reshape(f // block, block, d)[idx]
+    return wu, wd
+
+
 def _gate_up(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x @ p.w_gate) * (x @ p.w_up)
 
@@ -153,8 +184,7 @@ def swiglu_dsg_gather(p: SwiGLU, x: torch.Tensor, state: dict,
     b = cfg.block
     idx = shared_topk_indices(x, state, cfg, f)                  # (K',)
     wg = p.w_gate.reshape(d, f // b, b).transpose(0, 1)[idx]     # (K', d, b)
-    wu = p.w_up.reshape(d, f // b, b).transpose(0, 1)[idx]
-    wd = p.w_down.reshape(f // b, b, d)[idx]                     # (K', b, d)
+    wu, wd = _gather_blocks(p, idx, b)
     h = (F.silu(torch.einsum("...d,kdb->...kb", x, wg))
          * torch.einsum("...d,kdb->...kb", x, wu))
     return torch.einsum("...kb,kbd->...d", h, wd)
@@ -183,6 +213,44 @@ def swiglu_ffn(p: SwiGLU, x: torch.Tensor, state: Optional[dict],
 
 
 swiglu_ffn.calls = _calls
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's jax.nn.gelu: the tanh approximation (its
+    default), not torch's exact erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_dense(p: GeluFFN, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ p.w_up) @ p.w_down
+
+
+_gelu_calls = dict.fromkeys(FFN_MODES, 0)
+
+
+def gelu_ffn(p: GeluFFN, x: torch.Tensor, state: Optional[dict],
+             cfg: DSGConfig) -> torch.Tensor:
+    """GELU FFN (whisper) with DSG on the up projection: "mask" zeroes the
+    dropped groups after the GELU, "gather_shared" multiplies only the
+    batch-shared kept groups' blocks.  `gelu_ffn.calls` counts the calls
+    of each mode, as `swiglu_ffn.calls` does."""
+    mode = "dense" if not cfg.enabled or state is None else cfg.mode
+    if mode not in FFN_MODES:
+        raise ValueError(f"unknown DSG mode {cfg.mode!r}")
+    _gelu_calls[mode] += 1
+    if mode == "dense":
+        return gelu_dense(p, x)
+    if mode == "gather_shared":
+        idx = shared_topk_indices(x, state, cfg, p.w_up.shape[1])
+        wu, wd = _gather_blocks(p, idx, cfg.block)
+        h = gelu(torch.einsum("...d,kdb->...kb", x, wu))
+        return torch.einsum("...kb,kbd->...d", h, wd)
+    mask = drs_group_mask(x, state, cfg)
+    h = masks.apply_expanded(gelu(x @ p.w_up), mask, cfg.block)
+    return h @ p.w_down
+
+
+gelu_ffn.calls = _gelu_calls
 
 
 def swiglu_csr_masked(p: SwiGLU, x: torch.Tensor, idx: torch.Tensor,

@@ -16,16 +16,20 @@ synthetic traffic through the ServingEngine, as `repro.launch.serve` does.
 
 The defaults are the reference's: `--workload batch` (one batch of
 `--batch` prompts of `--prompt-len` tokens, `--gen` greedy tokens each,
-every arch; the recurrent archs xlstm-350m and zamba2-7b serve only so) and
-`--cache-backend dense` and `--admission overlap` for `--workload mixed`,
-whose requests sample at `--temperature` / `--top-p` (0 = greedy).
+every arch but whisper-large-v3; the recurrent archs xlstm-350m and
+zamba2-7b serve only so) and `--cache-backend dense` and `--admission
+overlap` for `--workload mixed`, whose requests sample at `--temperature`
+/ `--top-p` (0 = greedy).
 `--replicas N` serves them through a Router (`--route-policy`,
 `--exec-mode`); `--chaos KIND@REPLICA:STEP[:SECONDS]` injects faults and
 turns on `--fault-tolerance`.  The model is initialised from a seeded
 torch.Generator on --device (cuda by default) and shared by every replica.
 With no GPU and no `--device cpu` the command exits non-zero; it never
 falls back to the CPU.  Flags of the reference launcher outside this list
-are rejected, naming ROADMAP.md.
+are rejected, naming ROADMAP.md, and so is `--arch whisper-large-v3`: the
+encoder-decoder needs audio frames, which neither this CLI nor the
+reference's gives it (the reference's crashes); it runs through the
+`api` verbs.
 """
 from __future__ import annotations
 
@@ -42,6 +46,12 @@ from repro_torch.serving.dsg_runtime import DSGServingConfig
 from repro_torch.serving.router import FaultToleranceConfig
 from repro_torch.serving.workload import mixed_requests, run_workload
 
+ENCDEC_REFUSAL = (
+    "the encoder-decoder family (whisper-large-v3) runs through the "
+    "repro_torch.models.api verbs on make_inputs' frames; this CLI feeds "
+    "tokens only, and the reference's crashes on it with KeyError 'frames' "
+    "(ROADMAP.md §3)")
+
 
 def generate(cfg, model, dsg, prompts: torch.Tensor,
              gen_tokens: int) -> torch.Tensor:
@@ -49,7 +59,10 @@ def generate(cfg, model, dsg, prompts: torch.Tensor,
     prompt prefill into a dense cache of P + gen_tokens positions (for the
     recurrent families, the decode state the prefill returns), then
     token-by-token decode with the same DSG masks as the prefill (the
-    reference's `generate` at temperature 0, its default)."""
+    reference's `generate` at temperature 0, its default).  The
+    encoder-decoder family raises NotImplementedError: it needs frames."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"generate: {ENCDEC_REFUSAL}")
     b, p_len = prompts.shape
     cache = api.make_cache(cfg, b, p_len + gen_tokens,
                            device=prompts.device)
@@ -187,6 +200,8 @@ def main(argv=None):
         ap.error(f"--decode-chunk must be >= 1, got {args.decode_chunk}")
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch}: {ENCDEC_REFUSAL}")
     if args.no_dsg:
         if args.dsg_serving:
             ap.error("--dsg-serving needs DSG enabled (drop --no-dsg)")

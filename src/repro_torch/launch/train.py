@@ -11,6 +11,11 @@ straggler monitor -> crash/restore loop.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --arch zamba2-7b --steps 2        # or xlstm-350m: the recurrent archs
 
+The CLI refuses `--arch whisper-large-v3`: the synthetic stream has tokens
+and no audio frames (the reference's CLI crashes on it); the
+encoder-decoder trains through `api.train_loss` and `trainer_for` on
+`api.make_inputs`' batches.
+
 Runs on the card unless `--device cpu` (or device="cpu") asks for the CPU;
 without a card it exits with an error.  The production mesh and the ZeRO-1
 optimizer layout wait for the parallel substrate (ROADMAP.md queue 1
@@ -59,7 +64,7 @@ def trainer_for(model, dsg, cfg, acfg: adamw.AdamWConfig, *,
              "opt": adamw.init_opt(params, cfg.dtype == "bfloat16")}
     if grad_compress:
         state["err"] = init_feedback(params)
-    device = model.embed.device
+    device = next(model.parameters()).device
 
     def step_fn(state, batch):
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
@@ -211,6 +216,9 @@ def main(argv=None):
                else configs.get_config(args.arch))
     except KeyError as e:
         ap.error(str(e))
+    if cfg.family == "encdec":
+        from repro_torch.launch.serve import ENCDEC_REFUSAL
+        ap.error(f"--arch {args.arch}: {ENCDEC_REFUSAL}")
     t0 = time.perf_counter()
     _, history, monitor = train(cfg, steps=args.steps,
                                 ckpt_dir=args.ckpt_dir,

@@ -1,13 +1,16 @@
-"""Model API used by the serving engine, the launchers and the tests: the
-decoder families (dense, moe, vlm) and the recurrent families (xlstm,
-zamba) of `repro.models.api`.
+"""Model API used by the serving engine, the launchers and the tests: every
+family of `repro.models.api`, the decoder ones (dense, moe, vlm), the
+recurrent ones (xlstm, zamba) and the encoder-decoder one (encdec).
 
   init_model(cfg, generator=, device=)          -> the family's nn.Module
   init_dsg(model, cfg, generator=, device=)     -> DSG state or None
   refresh_dsg(dsg, model, cfg)                  -> DSG state, f(W) anew
   train_loss(model, dsg, cfg, batch)            -> scalar loss
   make_cache(cfg, batch, max_seq, device=)      -> decode state (None for
-                                                   xlstm, built lazily)
+                                                   xlstm, built lazily;
+                                                   max_seq // dec_ratio
+                                                   decoder slots for
+                                                   encdec)
   prefill(model, dsg, cfg, inputs, cache)       -> (last_logits, state)
   decode_step(model, dsg, cfg, token, state, pos) -> (logits, state)
   make_inputs(cfg, shape, concrete=, seed=, device=) -> batch dict
@@ -16,10 +19,11 @@ Serving picks a decoder's cache layout through `repro_torch.serving.kv_cache`
 and passes the paged view into decode_step; decoder caches are updated in
 place.  The recurrent families return new states, as the reference's do
 (`models/recurrent.py`), and take neither DRS score collection nor the
-group-CSR FFN.  The encoder-decoder family raises NotImplementedError,
-naming ROADMAP.md.  The entry points that make tensors put them on the
-card unless the caller asks for the CPU (`device="cpu"`); with no card
-they raise.
+group-CSR FFN; nor does the encoder-decoder family, whose prefill takes
+{'frames', 'tokens'} and returns the state {'self': the decoder cache,
+'memory': the encoder K/V}.  The entry points that make tensors put them
+on the card unless the caller asks for the CPU (`device="cpu"`); with no
+card they raise.
 """
 from __future__ import annotations
 
@@ -29,10 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import recurrent, transformer
+from repro_torch.models import encdec, recurrent, transformer
 
 DECODER_FAMILIES = transformer.DECODER_FAMILIES
 RECURRENT_FAMILIES = ("xlstm", "zamba")
+FAMILIES = DECODER_FAMILIES + RECURRENT_FAMILIES + ("encdec",)
 
 
 def require_device(device) -> torch.device:
@@ -45,18 +50,18 @@ def require_device(device) -> torch.device:
     return device
 
 
-def _require_ported(cfg: ModelConfig, verb: str) -> None:
-    if cfg.family not in DECODER_FAMILIES + RECURRENT_FAMILIES:
-        raise NotImplementedError(
-            f"{verb} for the {cfg.family!r} family is not ported (the port "
-            f"runs the families {DECODER_FAMILIES + RECURRENT_FAMILIES}; "
-            f"ROADMAP.md queue 1 item 8b)")
+def _require_family(cfg: ModelConfig, verb: str) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{verb}: unknown family {cfg.family!r} (the "
+                         f"families are {FAMILIES})")
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device="cuda"):
-    _require_ported(cfg, "init_model")
+    _require_family(cfg, "init_model")
     device = require_device(device)
+    if cfg.family == "encdec":
+        return encdec.init_model(cfg, generator=generator, device=device)
     if cfg.family == "xlstm":
         return recurrent.init_xlstm_model(cfg, generator=generator,
                                           device=device)
@@ -68,8 +73,11 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 
 def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
              device="cuda") -> Optional[dict]:
-    _require_ported(cfg, "init_dsg")
+    _require_family(cfg, "init_dsg")
     device = require_device(device)
+    if cfg.family == "encdec":
+        return encdec.init_dsg(model, cfg, generator=generator,
+                               device=device)
     if cfg.family == "xlstm":
         return recurrent.init_xlstm_dsg(model, cfg, generator=generator,
                                         device=device)
@@ -81,7 +89,9 @@ def init_dsg(model, cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
-    _require_ported(cfg, "refresh_dsg")
+    _require_family(cfg, "refresh_dsg")
+    if cfg.family == "encdec":
+        return encdec.refresh_dsg(dsg, model, cfg)
     if cfg.family == "xlstm":
         return recurrent.refresh_xlstm_dsg(dsg, model, cfg)
     if cfg.family == "zamba":
@@ -90,7 +100,9 @@ def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
 
 
 def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    _require_ported(cfg, "train_loss")
+    _require_family(cfg, "train_loss")
+    if cfg.family == "encdec":
+        return encdec.train_loss(model, dsg, cfg, batch)
     if cfg.family == "xlstm":
         logits, _ = recurrent.xlstm_forward(model, dsg, cfg, batch["tokens"])
         return transformer.cross_entropy(logits, batch["labels"])
@@ -102,9 +114,12 @@ def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda"):
-    _require_ported(cfg, "make_cache")
+    _require_family(cfg, "make_cache")
     dt = dtype or transformer.torch_dtype(cfg)
     device = require_device(device)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_seq // cfg.dec_ratio, dt,
+                                 device)
     if cfg.family == "xlstm":
         return None          # the state is built inside xlstm_forward
     if cfg.family == "zamba":
@@ -123,14 +138,18 @@ def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
             collect_drs_scores: bool = False):
     """The prompt's last logits (B, V) and the decode state.  A zamba
     prefill ignores `cache`, as the reference's does: its K/V come back
-    with the prompt's length, which decode then uses as a ring."""
-    _require_ported(cfg, "prefill")
+    with the prompt's length, which decode then uses as a ring.  An
+    encoder-decoder prefill takes inputs {'frames', 'tokens'}."""
+    _require_family(cfg, "prefill")
     if cfg.family in DECODER_FAMILIES:
         return transformer.prefill(model, dsg, cfg, inputs["tokens"], cache,
                                    prefix_embeds=inputs.get("prefix_embeds"),
                                    collect_drs_scores=collect_drs_scores)
     if collect_drs_scores:
         _refuse_serving_features(cfg, "DRS score collection")
+    if cfg.family == "encdec":
+        return encdec.prefill(model, dsg, cfg, inputs["frames"],
+                              inputs["tokens"], cache)
     if cfg.family == "xlstm":
         logits, st = recurrent.xlstm_forward(model, dsg, cfg,
                                              inputs["tokens"], last_only=True)
@@ -145,7 +164,7 @@ def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
                 live_pages=None, ffn_csr=None,
                 collect_drs_scores: bool = False):
-    _require_ported(cfg, "decode_step")
+    _require_family(cfg, "decode_step")
     if cfg.family in DECODER_FAMILIES:
         return transformer.decode_step(model, dsg, cfg, token, cache, pos,
                                        live_pages=live_pages,
@@ -154,6 +173,8 @@ def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
     if ffn_csr is not None or collect_drs_scores:
         _refuse_serving_features(
             cfg, "group-CSR decode / DRS score collection")
+    if cfg.family == "encdec":
+        return encdec.decode_step(model, dsg, cfg, token, cache, pos)
     if cfg.family == "xlstm":
         logits, st = recurrent.xlstm_forward(model, dsg, cfg, token,
                                              state=cache)
@@ -201,12 +222,14 @@ def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
     """The batch dict for a shape cell, as the reference's: kind 'train'
     {'tokens', 'labels'}, 'prefill' {'tokens'}, 'decode' {'token'}; a VLM
     adds 'prefix_embeds' (B, P, d) to train and prefill, with P =
-    min(vision_prefix, max(seq_len // 4, 1)) cut from the text.  With
+    min(vision_prefix, max(seq_len // 4, 1)) cut from the text; an
+    encoder-decoder takes 'frames' (B, seq_len, d) and tokens of
+    max(1, seq_len // dec_ratio).  With
     `concrete` the arrays are the reference's: int32 tokens from
     np.random.default_rng(seed) and standard-normal embeddings from
     default_rng(seed + 1), each array drawn from a fresh generator; else
     shape-only tensors on the meta device."""
-    _require_ported(cfg, "make_inputs")
+    _require_family(cfg, "make_inputs")
     b, s = shape.global_batch, shape.seq_len
     dt = transformer.torch_dtype(cfg)
     device = require_device(device) if concrete else torch.device("meta")
@@ -225,6 +248,14 @@ def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *,
                 device=device, dtype=dt)
         return torch.empty(shp, dtype=dt, device=device)
 
+    if cfg.family == "encdec":
+        sd = max(1, s // cfg.dec_ratio)
+        if shape.kind == "train":
+            return {"frames": emb((b, s, cfg.d_model)),
+                    "tokens": tok((b, sd)), "labels": tok((b, sd))}
+        if shape.kind == "prefill":
+            return {"frames": emb((b, s, cfg.d_model)), "tokens": tok((b, sd))}
+        return {"token": tok((b, 1))}
     if cfg.family == "vlm":
         p = min(cfg.vision_prefix, max(s // 4, 1))
         st = s - p

@@ -10,6 +10,9 @@ wo (H, D, d).  Two cache kinds reach `self_attention`:
     position of the (B,) `cache_pos` during decode;
   * the paged pools {'k', 'v'} of (P, ps, Kv, D) plus a page table during
     decode, updated in place by the paged executor.
+
+The encoder-decoder family adds `cross_attention` over encoder-memory K/V
+(`memory_kv`, computed once at prefill): no RoPE, f32 scores.
 """
 from __future__ import annotations
 
@@ -256,3 +259,25 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     if cache is None:
         return out, {"k": k_new, "v": v_new}
     return out, cache
+
+
+def cross_attention(p: Attention, x: torch.Tensor, mem_k: torch.Tensor,
+                    mem_v: torch.Tensor, *, n_heads: int,
+                    q_pos: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention of x (B, S, d) over precomputed encoder K/V
+    (B, T, Kv, D): no RoPE, every memory row visible, f32 scores (the
+    reference passes no bf16_scores), chunked above CHUNK_THRESHOLD."""
+    q = _proj(x, p.wq)
+    kf = repeat_kv(mem_k, n_heads)
+    vf = repeat_kv(mem_v, n_heads)
+    kv_pos = torch.arange(kf.shape[1], device=x.device)
+    if x.shape[1] * kf.shape[1] > CHUNK_THRESHOLD:
+        o = attend_chunked(q, kf, vf, q_pos, kv_pos, False, 0)
+    else:
+        o = attend_direct(q, kf, vf, q_pos, kv_pos, False, 0)
+    return _out(o, p.wo)
+
+
+def memory_kv(p: Attention, memory: torch.Tensor) -> tuple:
+    """Encoder-memory K/V (B, T, Kv, D) for cross-attention."""
+    return _proj(memory, p.wk), _proj(memory, p.wv)

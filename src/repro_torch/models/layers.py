@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMS norm, split-half RoPE, init helpers."""
+"""Shared layer primitives: RMS and layer norms, split-half RoPE, init
+helpers."""
 from __future__ import annotations
 
 import math
@@ -24,8 +25,44 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale)
 
 
-def norm_init(d: int, *, dtype: torch.dtype, device=None) -> RMSNorm:
-    return RMSNorm(torch.ones(d, dtype=dtype, device=device))
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32 with the population variance (the
+    reference's jnp.var), returned in x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = nn.Parameter(scale, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias)
+
+
+def norm_init(d: int, kind: str = "rmsnorm", *, dtype: torch.dtype,
+              device=None) -> nn.Module:
+    """An RMSNorm (scale 1) or, for kind "layernorm", a LayerNorm (scale 1,
+    bias 0)."""
+    ones = torch.ones(d, dtype=dtype, device=device)
+    if kind == "rmsnorm":
+        return RMSNorm(ones)
+    if kind == "layernorm":
+        return LayerNorm(ones, torch.zeros(d, dtype=dtype, device=device))
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+def norm_apply(kind: str, p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The reference's norm_apply: p's norm of `kind` over x."""
+    if kind == "rmsnorm":
+        return rms_norm(x, p.scale)
+    return layer_norm(x, p.scale, p.bias)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -82,7 +82,7 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the port's decoder runs the rmsnorm/swiglu decoder families "
             f"{DECODER_FAMILIES}, not {cfg.family}/{cfg.norm}/{cfg.act} "
-            f"(ROADMAP.md queue 1 item 8)")
+            f"(every decoder config of the reference is rmsnorm/swiglu)")
 
 
 def _init_ffn(cfg: ModelConfig, kw: dict):

@@ -333,9 +333,10 @@ class ServingEngine:
             raise NotImplementedError(
                 f"ServingEngine serves the decoder families "
                 f"{api.DECODER_FAMILIES}, not {cfg.family!r}: the "
-                f"reference's engine crashes on the recurrent families "
-                f"(ROADMAP.md §3), which serve through "
-                f"repro_torch.launch.serve.generate")
+                f"reference's engine crashes on the recurrent and "
+                f"encoder-decoder families (ROADMAP.md §3); the recurrent "
+                f"ones serve through repro_torch.launch.serve.generate, "
+                f"the encoder-decoder through the api verbs")
         if admission not in ("overlap", "wave"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if decode_chunk < 1:

@@ -94,9 +94,12 @@ def _t(batch: dict) -> dict:
 
 def test_the_seven_decoder_archs_are_ported():
     # the registry also holds the two recurrent archs
-    # (tests/test_torch_recurrent.py)
+    # (tests/test_torch_recurrent.py) and whisper-large-v3
+    # (tests/test_torch_encdec.py): every arch of the reference
     assert sorted(configs.ARCHS) == sorted(ARCHS + ["xlstm-350m",
-                                                    "zamba2-7b"])
+                                                    "zamba2-7b",
+                                                    "whisper-large-v3"])
+    assert list(configs.ARCHS) == list(jconfigs.ARCHS)
     assert sorted(ARCHS) == sorted(
         a for a in jconfigs.ARCHS if jconfigs.get_config(a).family in
         ("dense", "moe", "vlm"))
@@ -107,11 +110,14 @@ def test_the_seven_decoder_archs_are_ported():
                 jconfigs.cell_is_runnable(arch, shape)
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["no-such-arch"])
 def test_other_archs_are_refused_with_a_pointer(arch):
-    with pytest.raises(KeyError, match="ROADMAP"):
+    # every arch of the reference is ported: an arch neither package
+    # knows is refused, naming the archs there are
+    assert arch not in jconfigs.ARCHS
+    with pytest.raises(KeyError, match="unknown arch.*whisper-large-v3"):
         configs.get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="unknown arch.*internlm2-1.8b"):
         configs.get_smoke_config(arch)
 
 
@@ -278,8 +284,10 @@ def test_vlm_prefix_forward_matches_reference(built):
 
 
 def test_other_families_raise_naming_the_roadmap(built):
+    # every family of the reference is ported: a family neither package
+    # has is refused by every verb, naming the families there are
     _, (tcfg, model, tdsg) = built("internlm2-1.8b")
-    for fam in ("encdec",):
+    for fam in ("no-such-family",):
         cfg = tcfg.replace(family=fam)
         gen = torch.Generator().manual_seed(0)
         for call in (
@@ -292,7 +300,7 @@ def test_other_families_raise_naming_the_roadmap(built):
                 lambda: api.prefill(model, tdsg, cfg, {}, None),
                 lambda: api.decode_step(model, tdsg, cfg, None, None, 0),
                 lambda: api.make_inputs(cfg, SMOKE_SHAPE)):
-            with pytest.raises(NotImplementedError, match="item 8"):
+            with pytest.raises(ValueError, match="unknown family.*encdec"):
                 call()
 
 

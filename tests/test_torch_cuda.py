@@ -1301,3 +1301,67 @@ def test_recurrent_training_steps_card_match_cpu_on_card(cuda, arch):
         assert monitor.failures == []
         losses.append([h["loss"] for h in hist])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+
+
+# -- the encoder-decoder family on the card ----------------------------------
+
+def _whisper_smoke(dsg_mode, device):
+    """whisper-large-v3's smoke model (f32) built on the CPU from seed 0
+    and moved to `device`; dsg_mode "off", "topk" (the per-row threshold,
+    as the other card == CPU checks) or "shared" (the config's)."""
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    if dsg_mode == "off":
+        cfg = cfg.replace(dsg=cfg.dsg._replace(enabled=False))
+    else:
+        cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode=dsg_mode))
+    gen = torch.Generator().manual_seed(0)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+    return cfg, model.to(device), (None if dsg is None else
+                                   {k: v.to(device) for k, v in dsg.items()})
+
+
+@pytest.mark.parametrize("dsg_mode", ["off", "topk", "shared"])
+def test_whisper_prefill_and_decode_card_match_cpu_on_card(cuda, dsg_mode):
+    """api.prefill on make_inputs' frames and 8 greedy decode steps: the
+    card's logits equal the CPU's to 1e-4 and the streams are equal."""
+    from repro_torch.configs.base import ShapeConfig
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        cfg, model, dsg = _whisper_smoke(dsg_mode, device)
+        inputs = api.make_inputs(cfg, ShapeConfig("p", 64, 2, "prefill"),
+                                 concrete=True, seed=3, device=device)
+        logits, st = api.prefill(model, dsg, cfg, inputs,
+                                 api.make_cache(cfg, 2, 128, device=device))
+        out, toks = [logits.cpu()], []
+        for i in range(8):
+            tok = torch.argmax(logits, -1)[:, None]
+            toks.append(tok.cpu())
+            logits, st = api.decode_step(model, dsg, cfg, tok, st,
+                                         inputs["tokens"].shape[1] + i)
+            out.append(logits.cpu())
+        runs.append((torch.cat(toks, 1), out))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for got, want in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dsg_mode", ["off", "shared"])
+def test_whisper_train_loss_card_matches_cpu_on_card(cuda, dsg_mode):
+    """api.train_loss and its gradients (remat on) on the card against
+    the CPU's: loss rtol 1e-5, each gradient within 1e-5 x max(1,
+    max|g|)."""
+    from repro_torch.configs.base import SMOKE_SHAPE
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        cfg, model, dsg = _whisper_smoke(dsg_mode, device)
+        model.requires_grad_(True)
+        batch = api.make_inputs(cfg, SMOKE_SHAPE, concrete=True,
+                                device=device)
+        loss = api.train_loss(model, dsg, cfg, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5)
+    for got, want in zip(runs[0][1], runs[1][1]):
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)

@@ -296,8 +296,14 @@ def test_serving_features_and_encdec_are_refused(built):
                             ffn_csr={"idx": None, "counts": None})
     assert api.make_cache(tcfg.replace(family="xlstm"), 2, 8,
                           device="cpu") is None
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        api.make_cache(tcfg.replace(family="encdec"), 2, 8, device="cpu")
+    # the encoder-decoder's cache is the decoder's: max_seq // dec_ratio
+    # slots (tests/test_torch_encdec.py holds the family)
+    enc = tcfg.replace(family="encdec", dec_ratio=4)
+    cache = api.make_cache(enc, 2, 8, device="cpu")
+    assert set(cache) == {"k", "v"}
+    for t in cache.values():
+        assert tuple(t.shape) == (enc.n_layers, 2, 2, enc.n_kv, enc.head_dim)
+        assert t.dtype == torch.float32 and not bool(t.any())
 
 
 # ---------------------------------------------------------------------------

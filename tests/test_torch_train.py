@@ -315,11 +315,13 @@ def test_refresh_dsg_matches_reference(ref):
 def test_other_families_point_at_the_roadmap(ref):
     cfg, params, dsg, *_ = ref["mask"]
     tcfg, model, tdsg = _port(cfg, params, dsg)
-    encdec = tcfg.replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.train_loss(model, tdsg, encdec, _batch(0, cfg.vocab))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.refresh_dsg(tdsg, model, encdec)
+    # every family of the reference trains; one that does not exist is
+    # refused
+    other = tcfg.replace(family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
+        api.train_loss(model, tdsg, other, _batch(0, cfg.vocab))
+    with pytest.raises(ValueError, match="unknown family"):
+        api.refresh_dsg(tdsg, model, other)
 
 
 @pytest.fixture(scope="module")
@@ -444,7 +446,7 @@ def test_cli_trains_the_smoke_model_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flags,says", [
     (["--production-mesh"], "ROADMAP"), (["--steps", "0"], "--steps"),
-    (["--batch", "0"], "--batch"), (["--arch", "whisper-large-v3"], "ROADMAP"),
+    (["--batch", "0"], "--batch"), (["--arch", "whisper-large-v3"], "ROADMAP.md §3"),
     (["--steps", "x"], "invalid int")])
 def test_cli_rejects_bad_flags(flags, says, capsys):
     with pytest.raises(SystemExit) as exc:
