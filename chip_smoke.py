@@ -271,12 +271,32 @@ result line):
             width cut to 2 + 2 layers, 2 lanes, DSG on and off, within
             WHISPER_CPU_ATOL; the smoke model's 8-token greedy stream card
             == CPU.  None of the six kernels may launch in the phase.
+26. plan  — `launch.dryrun`'s plan against the card, after phase 25's
+            memory is freed.  The dry run (meta tensors, on the host CPU)
+            of internlm2-1.8b's phase-19 step, batch 8 x seq 256, remat and
+            DSG mask mode, one microbatch (the ordinary trainer takes the
+            batch whole), on a 1 x 1 mesh.  (a) The same state on the card
+            (bf16 weights from a seeded torch.Generator, DSG state, AdamW
+            with f32 masters) laid out as DTensors by the port's specs on
+            `make_local_mesh()` of a one-rank NCCL group (a FileStore in a
+            temporary directory, destroyed at the end): the shards' bytes
+            must equal the dry run's params + dsg + opt, and the
+            torch.cuda.memory_allocated() they add (cuBLAS workspaces
+            freed around the readings) must equal those bytes with each
+            shard's block as the caching allocator rounded it (read from
+            its snapshot; each under its 2 MiB segment multiple); the
+            rounding is printed.  (b) One step of `launch.train`'s trainer
+            at the same shape: its peak allocated memory against the dry
+            run's traced peak, their ratio within PLAN_PEAK_BAND.  (c) The
+            dry run's FLOPs beside phase 19's 6 x N x T and the step's
+            TFLOP/s by both (median of steps 2-6).  None of the six
+            kernels may launch in the phase.
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-then 6-9, 19 and 21-25; each prints its seconds.
+then 6-9, 19 and 21-26; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -303,7 +323,9 @@ WARM_REPS = 30                     # profiled calls before the timed ones:
                                    # the first calls after it starts (up
                                    # to 16 of 50 on an H100 80GB HBM3)
 CALL_GAP_NS = 3_000_000            # idle device time that ends a call
-PROFILE_TRIES = 3                  # traces device_ms takes to find a clean one
+PROFILE_TRIES = 5                  # traces device_ms takes to find a clean one:
+                                   # a host under load can drop a trace's
+                                   # events or stall a call past CALL_GAP_NS
 # (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
 # for values near zero; in f32, summation order
 TOL = {"torch.bfloat16": (8e-3, 4e-3), "torch.float32": (1e-4, 1e-4)}
@@ -3076,6 +3098,202 @@ def whisper_phase(dev) -> dict:
     return out
 
 
+# -- phase 26: the dry run's plan against the card --------------------------
+
+ALLOC_SEGMENT = 2 << 20            # the caching allocator's large segment
+                                   # multiple: a block keeps the rest of
+                                   # its segment when that is too small to
+                                   # split off, so it rounds a tensor up by
+                                   # less than this
+# card peak / dry-run traced peak in phase 26 (b): 1.0013 measured on an
+# H100 80GB HBM3 at 700 W (the allocator's 512-byte rounding and the
+# cuBLAS workspace above the traced tensors)
+PLAN_PEAK_BAND = (0.99, 1.02)
+PLAN_STEPS = 6                     # training steps in (c): 1 warm-up + 5
+
+
+def block_bytes() -> dict:
+    """{address: bytes} of the caching allocator's live blocks."""
+    import torch
+    return {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def state_allocated() -> int:
+    """torch.cuda.memory_allocated() with the cuBLAS workspaces freed
+    and the collector run: the bytes of live tensors alone."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def plan_phase(dev) -> dict:
+    """Phase 26: `launch.dryrun`'s plan for internlm2-1.8b's phase-19 step
+    against the card.  See the module docstring."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    from repro_torch.launch import dryrun, mesh as lmesh, train
+    from repro_torch.models import api, specs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import P, axes_for_mesh, distribute
+    batch, seq = 8, 256
+    kernels = dict({n: k[0] for n, k in serve_kernels().items()},
+                   dsg_ffn=dsg_ffn.dsg_ffn,
+                   flash_attention=flash_attention.flash_attention)
+    for w in kernels.values():
+        w.launches = 0
+    # the ordinary trainer takes the batch whole: the dry run's step too
+    cfg = configs.get_config(ARCH).replace(microbatches=1)
+    if not (cfg.remat and cfg.dsg.enabled and cfg.dsg.mode == "mask"):
+        fail(f"the phase-19 config is not DSG mask mode with remat: {cfg}")
+    shape = ShapeConfig("phase19", seq, batch, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(ARCH, shape, mesh="local",
+                          overrides=["microbatches=1"])
+    out = {"dryrun": rec, "dryrun_s": time.perf_counter() - t0}
+    if rec["status"] != "ok":
+        fail(f"the dry run of {ARCH} at {batch} x {seq} failed: {rec}")
+    mem = rec["memory"]
+    want = mem["params"] + mem["dsg"] + mem["opt"]
+    print(f"[plan] dry run of {ARCH} x {batch} x {seq} (train, remat, DSG "
+          f"mask, 1 x 1 mesh, meta tensors on the host CPU, "
+          f"{out['dryrun_s']:.1f}s): params {mem['params']} B, DSG "
+          f"{mem['dsg']} B, AdamW with f32 masters {mem['opt']} B; "
+          f"{rec['flops']} FLOPs; traced peak {rec['trace_peak_bytes']} B",
+          flush=True)
+
+    # (a) the same state on the card, laid out as DTensors on a 1 x 1 mesh
+    # of a one-rank NCCL group
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = lmesh.make_local_mesh()
+        ax = axes_for_mesh(mesh)
+        # the communicator exists before the count; the cuBLAS workspaces
+        # (32 MiB a handle and stream, made by the first product that
+        # needs one) are freed before each reading
+        distribute(torch.ones(4, device=dev), mesh, P())
+        base = state_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = api.init_model(cfg, generator=gen, device=dev)
+        dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+        params = dict(model.named_parameters())
+        opt = adamw.init_opt(params, use_master=True)
+        pspecs = specs.param_specs(model, cfg, ax, 1)
+        ospecs = adamw.opt_specs_with_master(pspecs, params)
+        dspecs = specs.dsg_specs(dsg, cfg, ax, 1)
+        laid = {"params": {n: distribute(p.detach(), mesh, pspecs[n])
+                           for n, p in params.items()},
+                "dsg": {k: distribute(v, mesh, dspecs[k])
+                        for k, v in dsg.items()},
+                "opt": {k: {n: distribute(t, mesh, ospecs[k][n])
+                            for n, t in opt[k].items()}
+                        for k in ("m", "v", "master")}}
+        del model, dsg, params, opt
+        added = state_allocated() - base
+        locals_ = [t.to_local() for part in laid.values()
+                   for t in state_leaves(part)]
+        storages = {t.untyped_storage().data_ptr(): t for t in locals_}
+        exact = {part: nbytes(t.to_local() for t in state_leaves(laid[part]))
+                 for part in laid}
+        blocks = block_bytes()
+        # each shard's block, as the allocator rounded it
+        rounding = [blocks[a] - t.untyped_storage().nbytes()
+                    for a, t in storages.items()]
+        rounded = sum(exact.values()) + sum(rounding)
+        out["state"] = {"added_bytes": added, "local_bytes": exact,
+                        "dryrun_bytes": want, "rounded_bytes": rounded,
+                        "rounding_bytes": sum(rounding),
+                        "max_rounding_bytes": max(rounding),
+                        "rounded_tensors": sum(r > 0 for r in rounding),
+                        "tensors": len(locals_),
+                        "storages": len(storages)}
+        print(f"[plan] (a) state on the card as DTensors: "
+              f"{len(locals_)} local shards, memory_allocated() +{added} B;"
+              f" their bytes {exact} = {sum(exact.values())} B against the "
+              f"dry run's {want} B; the allocator's blocks round "
+              f"{sum(r > 0 for r in rounding)} of them up by "
+              f"{sum(rounding)} B in all (at most {max(rounding)} B one), "
+              f"{rounded} B", flush=True)
+        if {k: exact[k] for k in ("params", "dsg", "opt")} != {
+                k: mem[k] for k in ("params", "dsg", "opt")}:
+            fail(f"the card's shards {exact} are not the dry run's {mem}")
+        if added != rounded or max(rounding) >= ALLOC_SEGMENT:
+            fail(f"the state took {added} B on the card, not the dry run's "
+                 f"{want} B in the allocator's blocks ({rounded} B)")
+        del laid, locals_, storages
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one step of the ordinary trainer at the same shape: its peak
+    # against the dry run's traced peak; (c) the step's FLOPs and rate
+    acfg = adamw.AdamWConfig(total_steps=PLAN_STEPS, warmup=2)
+    resident = torch.cuda.memory_allocated()
+    state, step_fn, _ = train.build_trainer(cfg, acfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, peak = [], None
+    for step in range(PLAN_STEPS):
+        b = synthetic.batch_at(step, global_batch=batch, seq_len=seq,
+                               vocab=cfg.vocab, seed=SEED)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        if peak is None:
+            peak = torch.cuda.max_memory_allocated() - resident
+        if not math.isfinite(loss):
+            fail(f"step {step} loss {loss}")
+    model = state["model"]
+    n_matmul = sum(p.numel() for p in model.parameters()) - \
+        model.embed.numel()
+    del state, model, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = peak / rec["trace_peak_bytes"]
+    p50 = sorted(ms[1:])[len(ms[1:]) // 2]
+    six_nt = 6 * n_matmul * batch * seq
+    out.update({"peak_bytes": peak, "trace_peak_bytes":
+                rec["trace_peak_bytes"], "peak_ratio": ratio,
+                "peak_band": PLAN_PEAK_BAND, "step_ms": ms,
+                "step_ms_p50": p50, "flops": rec["flops"],
+                "flops_6nt": six_nt,
+                "tflops_dryrun": rec["flops"] / (p50 / 1e3) / 1e12,
+                "tflops_6nt": six_nt / (p50 / 1e3) / 1e12,
+                "kernel_launches": {n: w.launches
+                                    for n, w in kernels.items()}})
+    print(f"[plan] (b) one step of launch.train's trainer at {batch} x "
+          f"{seq}: peak {peak} B above the {resident} B resident before "
+          f"it, the dry run's traced peak {rec['trace_peak_bytes']} B, "
+          f"ratio {ratio:.4f} (band {PLAN_PEAK_BAND})", flush=True)
+    print(f"[plan] (c) the step's FLOPs: dry run {rec['flops']}, 6 x N x T "
+          f"{six_nt} (N {n_matmul} matmul parameters, T {batch * seq}); "
+          f"step ms p50 {p50:.1f} of steps 2-{PLAN_STEPS} {[round(x, 1) for x in ms]}; "
+          f"{out['tflops_dryrun']:.1f} TFLOP/s by the dry run's count, "
+          f"{out['tflops_6nt']:.1f} by 6NT", flush=True)
+    if not PLAN_PEAK_BAND[0] <= ratio <= PLAN_PEAK_BAND[1]:
+        fail(f"the card's peak is {ratio:.4f} x the dry run's, outside "
+             f"{PLAN_PEAK_BAND}")
+    if any(out["kernel_launches"].values()):
+        fail(f"a kernel launched in phase 26: {out['kernel_launches']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3596,6 +3814,14 @@ def main() -> int:
     whisper = whisper_phase(dev)
     print(f"[{WHISPER_ARCH}] stats " + json.dumps(whisper), flush=True)
     print(f"[phase 25] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 26. the dry run's plan against the card, on memory phase 25 gave back
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan = plan_phase(dev)
+    print("[plan] stats " + json.dumps(plan, default=str), flush=True)
+    print(f"[phase 26] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

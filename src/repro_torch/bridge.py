@@ -66,7 +66,7 @@ def model_from_jax(params: dict, cfg, device="cuda", trainable: bool = False):
                                              transformer.init_model)
     model = init(cfg, generator=None, device="meta")
     names = [n for n, _ in model.named_parameters()]
-    want = {_split(n)[0] for n in names}
+    want = {reference_path(n)[0] for n in names}
     if want != _paths(params):
         raise ValueError(f"the reference tree's leaves "
                          f"{sorted(_paths(params) ^ want)} do not match the "
@@ -117,9 +117,11 @@ def _get(tree: dict, parts):
     return tree
 
 
-def _split(name: str):
-    """A parameter name -> (tree path, block indices): `mlstm.1.2.core.w`
-    -> (('mlstm', 'core', 'w'), (1, 2)); a name with no indices has ()."""
+def reference_path(name: str):
+    """A parameter name -> (its path in the reference's tree, block
+    indices): `mlstm.1.2.core.w` -> (('mlstm', 'core', 'w'), (1, 2)); a
+    name with no indices has ().  The reference stacks the leaf over as
+    many leading dims as there are indices."""
     parts = name.split(".")
     i = 1
     while i < len(parts) and parts[i].isdigit():
@@ -134,7 +136,7 @@ def to_reference_tree(flat: dict) -> dict:
     `mlstm.<g>.<l>.<path>` into `mlstm/<path>` (G, n_m, ...))."""
     tree, stacks = {}, {}
     for name, t in flat.items():
-        path, idx = _split(name)
+        path, idx = reference_path(name)
         t = t.detach() if t.is_meta else t.detach().cpu()
         if idx:
             stacks.setdefault(path, []).append((idx, t))
@@ -159,7 +161,7 @@ def from_reference_tree(tree: dict, names, device=None) -> dict:
     blocks."""
     out = {}
     for name in names:
-        path, idx = _split(name)
+        path, idx = reference_path(name)
         out[name] = _as_tensor(_get(tree, path))[idx].to(device)
     return out
 

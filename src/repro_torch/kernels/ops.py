@@ -1,8 +1,9 @@
 """Public entry points to the kernels, under the reference's `ops` names.
 
 The device of the operands decides: CPU tensors run the kernel's plain
-PyTorch version; CUDA tensors launch the hand-written kernel, which raises
-for anything it does not take.  There is no switch and no fallback.
+PyTorch version (so do meta tensors, which hold shapes only: the dry
+run); CUDA tensors launch the hand-written kernel, which raises for
+anything it does not take.  There is no switch and no fallback.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from repro_torch.kernels import (drs_search, dsg_ffn, flash_attention as fa,
 
 
 def _on_cpu(t) -> bool:
-    return t.device.type == "cpu"
+    return t.device.type in ("cpu", "meta")
 
 
 def drs_project(x, r):

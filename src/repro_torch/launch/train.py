@@ -17,9 +17,10 @@ encoder-decoder trains through `api.train_loss` and `trainer_for` on
 `api.make_inputs`' batches.
 
 Runs on the card unless `--device cpu` (or device="cpu") asks for the CPU;
-without a card it exits with an error.  The production mesh and the ZeRO-1
-optimizer layout wait for the parallel substrate (ROADMAP.md queue 1
-item 9).
+without a card it exits with an error.  The ZeRO-1 optimizer layout is
+planned (`optim.adamw.zero1_specs`, `launch.dryrun`), but training over
+the production mesh waits for the model to run sharded (ROADMAP.md
+queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -183,8 +184,8 @@ def train(cfg, *, steps: int = 100, ckpt_dir=None, ckpt_every: int = 20,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train",
-        epilog="--production-mesh waits for the parallel substrate; see "
-               "ROADMAP.md.")
+        epilog="--production-mesh waits for the model to run sharded "
+               "(ROADMAP.md queue 1 item 9b).")
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (2 layers, d=64)")

@@ -21,7 +21,7 @@ adds them in ascending expert order from 0.0 in f32, the order in which
 the reference's scatter-add visits one token, with no atomics.
 
 Expert parallelism (the reference's shard_map over a 'model' axis) is
-sharding, ROADMAP.md queue 1 item 9; a `mesh` raises.
+sharding, ROADMAP.md queue 1 item 9b; a `mesh` raises.
 """
 from __future__ import annotations
 
@@ -176,7 +176,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     if mesh is not None:
         raise NotImplementedError(
             "expert parallelism over a mesh is sharding, not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+            "(ROADMAP.md queue 1 item 9b)")
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
     logits = x2d.float() @ p.router

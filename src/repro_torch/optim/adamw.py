@@ -11,6 +11,13 @@ the master, then a cast back to the parameter's dtype.  The step's scalars
 the host from the global norm; the elementwise update runs as
 `torch._foreach_*` passes over a few leaves at a time, updating the state
 and the parameters in place.
+
+`zero1_specs` lays the optimizer state out ZeRO-1 style: each leaf's
+parameter spec plus 'data' on its first replicated dim that 16 divides,
+the reference's rule applied to the port's per-block leaves (ROADMAP.md
+§3: where the reference's stacked leaf has a layer dim that 16 divides,
+its 'data' lands there and the port's on the leaf's own first such dim;
+the bytes per device are the same).
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import P
 
 F32 = np.float32
 GROUP_BYTES = 1 << 30     # f32 bytes of the leaves one set of passes takes:
@@ -85,11 +94,14 @@ def _groups(names: list, params: dict):
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, opt: dict,
-                  cfg: AdamWConfig) -> tuple:
+                  cfg: AdamWConfig, read_norm=None) -> tuple:
     """One AdamW step, in place.  Returns (params, opt, metrics) with
-    metrics {"grad_norm", "lr"} as f32 numpy scalars."""
+    metrics {"grad_norm", "lr"} as f32 numpy scalars.  `read_norm` turns
+    the global-norm tensor into a number (its `.item()` by default; the
+    dry run's meta tensors hold no value to read)."""
     step = opt["step"] + 1
-    gnorm = F32(global_norm(grads).item())
+    norm = global_norm(grads)
+    gnorm = F32(norm.item() if read_norm is None else read_norm(norm))
     scale = np.minimum(F32(1.0), F32(cfg.clip_norm)
                        / np.maximum(gnorm, F32(1e-9)))
     lr = lr_at(cfg, step)
@@ -135,3 +147,32 @@ def apply_updates(params: dict, grads: dict, opt: dict,
                 x.copy_(x.float() - u)
     opt["step"] = step
     return params, opt, {"grad_norm": gnorm, "lr": lr}
+
+
+# --- ZeRO-1 spec derivation --------------------------------------------------
+
+def zero1_specs(pspecs: dict, params: dict, data_axis: str = "data") -> dict:
+    """Optimizer-state specs: the parameter's spec plus `data_axis` on its
+    first replicated dim that 16 divides (the classic ZeRO-1 layout)."""
+
+    def rule(spec: P, leaf) -> P:
+        entries = list(spec) + [None] * (leaf.ndim - len(spec))
+        for i, (e, dim) in enumerate(zip(entries, leaf.shape)):
+            if e is None and dim % 16 == 0 and dim >= 16:
+                entries[i] = data_axis
+                return P(*entries)
+        return spec
+
+    return {n: rule(pspecs[n], p) for n, p in params.items()}
+
+
+def opt_specs(pspecs: dict, params: dict, zero1: bool = True) -> dict:
+    base = zero1_specs(pspecs, params) if zero1 else pspecs
+    return {"step": P(), "m": base, "v": base}
+
+
+def opt_specs_with_master(pspecs: dict, params: dict,
+                          zero1: bool = True) -> dict:
+    st = opt_specs(pspecs, params, zero1)
+    st["master"] = st["m"]
+    return st

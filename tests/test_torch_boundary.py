@@ -1,7 +1,12 @@
 """The port's import boundary: no module of `repro_torch` and no line of
 `chip_smoke.py` imports JAX or the JAX package `repro` (only `repro_torch`),
-so the port runs on a machine that has PyTorch and nothing of JAX."""
+so the port runs on a machine that has PyTorch and nothing of JAX; and
+importing the port's modules sets up no torch.distributed process group
+(the mesh builders and the dry run make one only when called)."""
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -51,4 +56,25 @@ def test_port_tree_is_covered():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "ops.py", "scheduler.py", "bridge.py",
             "router.py", "parallel_exec.py", "contracts.py",
-            "fault_tolerance.py", "dsg_runtime.py", "workload.py"} <= names
+            "fault_tolerance.py", "dsg_runtime.py", "workload.py",
+            "sharding.py", "context.py", "mesh.py", "specs.py",
+            "elastic.py", "dryrun.py"} <= names
+
+
+def test_importing_the_port_sets_up_no_process_group():
+    """Every module of the package imported in a fresh interpreter: no
+    process group is initialised afterwards."""
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  for p in PORT_FILES if p.name not in ("chip_smoke.py",
+                                                        "__init__.py"))
+    assert "repro_torch.launch.dryrun" in mods
+    code = ("import importlib, sys\n"
+            "import torch.distributed as dist\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not dist.is_initialized(), m\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, *mods], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

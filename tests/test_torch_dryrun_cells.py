@@ -1,0 +1,51 @@
+"""Full-width dry-run cells, on the CPU: `launch.dryrun.run_cell` of
+internlm2-1.8b x train_4k on the single-pod mesh (256 fake ranks), whole;
+and 8d's llava-next-34b x prefill_32k, its layout at full depth against
+the reference's spec arithmetic (params, DSG state, inputs and the
+32k-slot cache) and its step traced at one of its 60 layers (full width,
+the shape's global size).  A whole 60-layer trace of a 32k-token prefill
+runs the chunked attention's 1024 tiles a layer and takes about 20
+minutes here; `python -m repro_torch.launch.dryrun --all` runs it
+(PERF.md).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import dryrun  # noqa: E402
+from test_torch_dryrun import check_cell_bytes  # noqa: E402
+
+# forward + backward of internlm2-1.8b at 256 x 4096, remat included
+INTERNLM2_TRAIN_4K_FLOPS = 16.656e15
+
+
+def _parts(mem) -> int:
+    return sum(mem[k] for k in ("params", "dsg", "opt", "inputs", "cache"))
+
+
+def test_internlm2_train_4k_cell():
+    rec = dryrun.run_cell("internlm2-1.8b", "train_4k", multi_pod=False)
+    assert not torch.distributed.is_initialized()
+    assert rec["status"] == "ok" and rec["devices"] == 256
+    assert rec["flops"] == pytest.approx(INTERNLM2_TRAIN_4K_FLOPS, rel=1e-3)
+    assert rec["flops_per_device_ideal"] == rec["flops"] / 256
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == _parts(mem)
+    assert mem["cache"] == 0 and mem["opt"] > 0 and mem["params"] > 0
+    # the traced step holds the unsharded model, its state and gradients
+    assert rec["trace_batch"] == 16
+    assert rec["trace_peak_bytes"] > 16 * mem["params"]
+    assert rec["collectives"] is None and rec["trace_s"] > 0
+
+
+def test_llava_prefill_32k_cell():
+    check_cell_bytes("llava-next-34b", "prefill_32k", "single")
+    rec = dryrun.run_cell("llava-next-34b", "prefill_32k", multi_pod=False,
+                          overrides=["n_layers=1"])
+    assert not torch.distributed.is_initialized()
+    assert rec["status"] == "ok" and rec["overrides"] == ["n_layers=1"]
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == _parts(mem) and mem["opt"] == 0
+    assert mem["cache"] > 0 and mem["inputs"] > 0
+    assert rec["flops"] > 0 and rec["trace_batch"] == 2
+    assert rec["trace_peak_bytes"] > mem["cache"]

@@ -4,8 +4,8 @@ AdamW (`repro_torch.optim.adamw`), ternary gradient compression
 (`ckpt.manager`) and the restart loop (`runtime.fault_tolerance`).
 
 Mirrors the reference's `tests/test_substrate.py` (optimizer, compression,
-data and checkpoint tests; its ZeRO-1, elastic and sharding-spec tests wait
-for the parallel substrate) and the training half of
+data and checkpoint tests; its ZeRO-1, elastic and sharding-spec tests are
+mirrored in `tests/test_torch_specs.py`) and the training half of
 `tests/test_runtime_fault_tolerance.py`, and adds parity: the learning
 rate schedule equals the reference's f32 values (rtol 1e-6: the libm cos
 and pow differ by an ulp at most), ternary codes equal and scales agree to
