@@ -291,15 +291,68 @@ result line):
             dry run's FLOPs beside phase 19's 6 x N x T and the step's
             TFLOP/s by both (median of steps 2-6).  None of the six
             kernels may launch in the phase.
+27. mesh  — the model's parallel parts on rank processes of this script
+            on the one card (`--mesh-rank`; NCCL refuses two ranks on one
+            device, so each part is a gloo group meeting at a FileStore in
+            a temporary directory, removed at the end), after phase 26's
+            memory is freed.  (a) internlm2-1.8b on a (data 1, model 2)
+            mesh of two ranks: `launch.train.build_trainer(mesh=)` lays
+            the trainer's state out (bf16 weights, DSG state, AdamW with
+            f32 masters, ZeRO-1 specs); each rank's shards must equal the
+            dry run's per-device params + dsg + opt on the same mesh
+            (traced on the fake backend), and their allocated bytes and
+            the layout's peak are printed.  Then `swiglu_dsg_gather_sharded`
+            (gather_shared, n_chunks 2 = shards) forward and backward at
+            full width (x 8 x 256 x 2048, F 8192, bf16) against the
+            unsharded `swiglu_dsg_gather` on the card after the ranks exit,
+            which selects the same groups: y, dx and each rank's dW
+            within MESH_E_FACTOR x E, E the unsharded bf16 run's gap to
+            the f32 FFN on the groups that run kept (ROADMAP.md §3's bf16
+            rule; f32 scores would keep other groups); ms p50 of both, the
+            host time of the collectives from a profiler window.
+            (b) deepseek-moe-16b's routed experts of one layer under
+            expert parallelism at full width (32 of 64 experts of 2048 x
+            1408 a rank, 4 x 128 tokens, bf16), DSG on as the config sets
+            it and off, against plain experts written apart from
+            models.moe (`moe_reference`: torch.topk routing, each expert's
+            first slots in token order, one expert at a time) on DSG's
+            groups as each expert shard selects them (the shared
+            threshold reads the shard's own first slot, as the
+            reference's shard_map body does); within MESH_E_FACTOR x E, E
+            the plain bf16 experts' gap to f32 on the same groups.  In
+            (a) and (b) planted faults (the output zeroed, model shard 1's
+            groups or experts dropped) must each fall outside the bound.
+            The whole model under EP would hold about 16.9
+            GB of bf16 weights a rank: 15.5 GB of its 31.0 GB of routed
+            experts and half of the other 2.8 GB.  (c) four ranks:
+            `pipeline_forward` (pipe 4) with stages of internlm2-1.8b's
+            SwiGLU FFN (d 2048, F 8192, bf16, a residual) on 4
+            microbatches of 2 x 256, equal to `sequential_reference`;
+            `hierarchical_grad_reduce` (pod 2 x data 2) on an f32 gradient
+            of w_gate's shape a rank, compress off and on, and
+            `compressed_psum` over 'data', each within MESH_COLL_TOL of
+            the mean and ternary decode every rank computes from all four
+            ranks' seeded gradients; `make_global_batch`'s rows on each
+            rank equal `batch_at`'s host slice.  The parts whose
+            DTensor layouts need an all_gather, which gloo cannot do on
+            CUDA tensors (MESH_CPU_ONLY), are named on a line of their own:
+            they run on gloo CPU ranks only, in the tests.  None of the six
+            kernels may launch in the phase.
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-then 6-9, 19 and 21-26; each prints its seconds.
+then 6-9, 19 and 21-27; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
+
+    python3 chip_smoke.py --mesh-cards
+
+runs, on four cards and nothing else, the whole model sharded with one
+card a rank over NCCL, which phase 27 cannot do on one card (see
+`main_mesh_cards`).
 """
 from __future__ import annotations
 
@@ -311,6 +364,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 SEED = 0
 ARCH = "internlm2-1.8b"
@@ -3294,8 +3348,1142 @@ def plan_phase(dev) -> dict:
     return out
 
 
+# -- phase 27: the model's parallel parts over a real multi-rank mesh ------
+
+MESH_RANK_FLAG = "--mesh-rank"     # chip_smoke.py --mesh-rank PART RANK N DIR
+MESH_RANK_TIMEOUT = 300            # seconds a part's ranks may take
+# sharded against unsharded in bf16 within MESH_E_FACTOR x E, with E the
+# unsharded function's own bf16-against-f32 gap on the same inputs
+# (ROADMAP.md §3's bf16 rule: atol 2E-3E); the top of the band
+MESH_E_FACTOR = 3.0
+MESH_COLL_TOL = 1e-6               # f32 reductions: of the largest entry
+# f32 logits of a whole sharded model against the unsharded ones: of the
+# largest entry (ROADMAP.md §3's rule for f32 gradients, 1e-4 of a leaf's
+# largest entry)
+MESH_F32_TOL = 1e-4
+# what gloo takes on CUDA tensors (torch 2.11+cu128, two ranks on one
+# H100, by scripts/gloo_cuda_probe.py): all_reduce, broadcast, barrier,
+# scatter, all_gather(_into_tensor), reduce_scatter_tensor,
+# all_to_all_single and the functional all_reduce / reduce_scatter /
+# permute_tensor; send/recv abort the process (gloo writes device memory
+# to its socket) and the functional all_gather segfaults, which DTensor's
+# Shard -> Replicate takes.  So the whole model's DTensor runs, which
+# gather, run on gloo CPU ranks only (the CPU tests):
+MESH_CPU_ONLY = (
+    "(a) internlm2-1.8b's sharded train_loss, backward and AdamW steps and "
+    "(b) deepseek-moe-16b's api.prefill under expert parallelism (the "
+    "vocab-sharded logits and the DSG threshold over model-sharded groups "
+    "gather over 'model'), remesh_state and the "
+    "global view of make_global_batch: DTensor's all_gather segfaults "
+    "under gloo on CUDA tensors; held on gloo CPU ranks by "
+    "tests/test_torch_sharded_model.py and tests/test_torch_sharded_train.py")
+
+
+def mesh_spawn(part: str, n: int, tmp: Path, spec: dict) -> list:
+    """Run phase-27 part `part` in n rank processes of this script (a gloo
+    group meeting at a FileStore in tmp); returns each rank's result."""
+    import torch
+    (tmp / f"{part}.json").write_text(json.dumps(spec))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), MESH_RANK_FLAG,
+         part, str(r), str(n), str(tmp)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 27 part {part}: rank {r} exited {p.returncode}:\n"
+                 f"{err[-3000:]}")
+    return [torch.load(tmp / f"{part}_{r}.pt", weights_only=False)
+            for r in range(n)]
+
+
+def mesh_worker(argv) -> int:
+    """One rank of a phase-27 part (a process this script starts)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    part, rank, n, tmp = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    spec = json.loads((tmp / f"{part}.json").read_text())
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, 8 // n))
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank if spec.get("card_per_rank") else 0)
+    dist.init_process_group(
+        spec.get("backend", "gloo"),
+        store=dist.FileStore(str(tmp / f"store_{part}"), n),
+        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=240))
+    try:
+        out = MESH_PARTS[part](rank, dev, spec)
+        out["kernel_launches"] = mesh_launches()
+        torch.save(out, tmp / f"{part}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_launches() -> dict:
+    """The six kernels' wrappers' launch counts in this process."""
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    kernels = dict({n: k[0] for n, k in serve_kernels().items()},
+                   dsg_ffn=dsg_ffn.dsg_ffn,
+                   flash_attention=flash_attention.flash_attention)
+    return {n: getattr(w, "launches", 0) for n, w in kernels.items()}
+
+
+def mesh_cfg(arch: str, spec: dict):
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    return cfg.replace(**spec.get("overrides", {}).get(arch, {}))
+
+
+def host_ms(fn, reps: int = 5) -> tuple:
+    """(median, all) wall ms of `fn` ending in a synchronise, after one
+    warm-up call."""
+    import torch
+    fn()
+    ms = []
+    for _ in range(reps):
+        sync = torch.cuda.synchronize if torch.cuda.is_available() \
+            else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def collective_ms(fn) -> dict:
+    """Host time of the process group's collectives in one call of `fn`,
+    from torch.profiler's CPU events (gloo runs its CUDA collectives from
+    the host), beside the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    coll = {}
+    for e in prof.key_averages():
+        if e.key.startswith(("c10d::", "_c10d_functional::", "gloo:")):
+            coll[e.key] = e.cpu_time_total / 1e3
+    return {"wall_ms": wall, "collective_ms": coll}
+
+
+def ffn_case(cfg, dev, dtype, tokens):
+    """Seeded inputs of one SwiGLU FFN at cfg's width: weights, DSG state
+    (R, f(W) = R W_gate), x and the output cotangent."""
+    import torch
+    from repro_torch.core import dsg_linear as dl
+    from repro_torch.core.projection import make_projection
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+    w = {"w_gate": normal((d, f), d ** -0.5), "w_up": normal((d, f), d ** -0.5),
+         "w_down": normal((f, d), f ** -0.5)}
+    r = make_projection(dl.proj_dim(d, f, cfg.dsg), d, generator=gen,
+                        dtype=dtype, device=dev)
+    x = normal((tokens[0], tokens[1], d), 1.0)
+    gy = normal((tokens[0], tokens[1], d), 1.0)
+    return w, {"r": r, "fw": r @ w["w_gate"]}, x, gy
+
+
+def mesh_tp(rank, dev, spec) -> dict:
+    """Part (a) on a (data 1, model 2) mesh of two ranks: internlm2-1.8b's
+    trainer state laid out by `launch.train.build_trainer(mesh=)`, then the
+    sharded gather FFN (`swiglu_dsg_gather_sharded`, gather_shared with
+    n_chunks 2) forward and backward at full width."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from repro_torch.core import dsg_linear as dl
+    from repro_torch.launch import mesh as lmesh, train
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.sharding import P, distribute
+    cfg = mesh_cfg(ARCH, spec)
+    mesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+    out = {}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    state, _, _ = train.build_trainer(cfg, adamw.AdamWConfig(), seed=SEED,
+                                      device=dev, mesh=mesh)
+    params = dict(state["model"].named_parameters())
+    out["local_bytes"] = {
+        "params": nbytes(p.to_local() for p in params.values()),
+        "dsg": nbytes(t.to_local() for t in state["dsg"].values()),
+        "opt": nbytes(t.to_local() for k in ("m", "v", "master")
+                      for t in state["opt"][k].values())}
+    if cuda:
+        gc.collect()
+        out["state_allocated"] = torch.cuda.memory_allocated() - base
+        out["layout_peak"] = torch.cuda.max_memory_allocated() - base
+    del state, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
+    w, st, x, gy = ffn_case(cfg, dev, torch.bfloat16, spec["ffn_tokens"])
+    wd = {"w_gate": distribute(w["w_gate"], mesh, P(None, "model")),
+          "w_up": distribute(w["w_up"], mesh, P(None, "model")),
+          "w_down": distribute(w["w_down"], mesh, P("model", None))}
+    for t in wd.values():
+        t.requires_grad_(True)
+    std = {"r": distribute(st["r"], mesh, P()),
+           "fw": distribute(st["fw"], mesh, P(None, "model"))}
+    xd = distribute(x, mesh, P(("data",), None, None)).requires_grad_(True)
+    gyd = distribute(gy, mesh, P(("data",), None, None))
+    ffn = type("FFN", (), wd)
+
+    def fwd_bwd():
+        with pctx.use_mesh(mesh):
+            y = dl.swiglu_dsg_gather_sharded(ffn, xd, std, dcfg)
+            grads = torch.autograd.grad(
+                y, [xd, wd["w_gate"], wd["w_up"], wd["w_down"]],
+                grad_outputs=gyd)
+            # the model shards' partial sums, reduced (an all_reduce)
+            dx = grads[0].redistribute(
+                mesh, [grads[0].placements[0], Replicate()])
+        return y, dx, grads
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    y, dx, grads = fwd_bwd()
+    out.update({"y": y.to_local().cpu(), "dx": dx.to_local().cpu(),
+                "dw": [g.to_local().cpu() for g in grads[1:]]})
+    out["ms_p50"], out["ms"] = host_ms(fwd_bwd)
+    out["profile"] = collective_ms(fwd_bwd)
+    if cuda:
+        out["ffn_peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def moe_case(cfg, dev, dtype, tokens):
+    """Seeded inputs of one MoE layer's routed experts at cfg's width:
+    expert weights, the f32 router, per-expert DSG state and x."""
+    import torch
+    from repro_torch.core import dsg_linear as dl
+    from repro_torch.core.projection import make_projection
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    e, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+
+    def normal(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dt)
+    w = (normal((e, d, f), d ** -0.5), normal((e, d, f), d ** -0.5),
+         normal((e, f, d), f ** -0.5))
+    router = normal((d, e), d ** -0.5, torch.float32)
+    r = make_projection(dl.proj_dim(d, f, cfg.dsg), d, generator=gen,
+                        dtype=dtype, device=dev)
+    x = normal((tokens[0] * tokens[1], d), 1.0)
+    return w, router, r, torch.matmul(r, w[0]), x
+
+
+def mesh_ep(rank, dev, spec) -> dict:
+    """Part (b) on a (data 1, model 2) mesh of two ranks: one layer of
+    deepseek-moe-16b's routed experts under expert parallelism at full
+    width (`models.moe._routed_ep`: 32 of the 64 experts a rank, the
+    outputs summed over 'model'), with DSG as the config sets it and
+    without."""
+    import torch
+    from repro_torch.launch import mesh as lmesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import moe
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.sharding import P, distribute, placements
+    cfg = mesh_cfg(MOE_ARCH, spec)
+    mesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+    w, router, r, fw, x = moe_case(cfg, dev, torch.bfloat16,
+                                   spec["moe_tokens"])
+    ep = P("model", None, None)
+    wd = dict(zip(("w_gate", "w_up", "w_down"),
+                  (distribute(t, mesh, ep) for t in w)))
+    fwd = distribute(fw, mesh, ep)
+    # the rows as the model hands them over: DTensors already (this rank's
+    # rows are all of them on a data axis of 1)
+    rows = placements(mesh, P(("data",), None))
+    logits = DTensor.from_local(x.float() @ router, mesh, rows,
+                                run_check=False)
+    x = DTensor.from_local(x, mesh, rows, run_check=False)
+    del w, fw
+    gc.collect()
+
+    def run(dsg_on=True):
+        dsg = cfg.dsg if dsg_on else cfg.dsg._replace(enabled=False)
+        with pctx.use_mesh(mesh):
+            return moe._routed_ep(
+                x, logits, SimpleNamespace(**wd), mesh, ("data",),
+                cfg.moe_experts,
+                cfg.moe_topk, cfg.moe_capacity_factor,
+                fwd if dsg_on else None, r if dsg_on else None, dsg)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"y": run().to_local().cpu(), "y_off": run(False).to_local().cpu(),
+           "local_expert_bytes": nbytes(t.to_local() for t in wd.values())}
+    out["ms_p50"], out["ms"] = host_ms(run)
+    out["profile"] = collective_ms(run)
+    if dev.type == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def moe_route(cfg, logits) -> dict:
+    """Plain routing, written apart from models.moe: each token's top-k
+    experts by softmax probability (torch.topk) with renormalised weights
+    'w' and experts 'e' (T, K), and each expert's first `cap` tokens in
+    token order, `cap` from all T tokens (the rows of a data axis of 1):
+    'rows' (E, cap), T where a slot is empty."""
+    import torch
+    t, e, k = logits.shape[0], cfg.moe_experts, cfg.moe_topk
+    top_w, top_e = torch.topk(torch.softmax(logits.float(), dim=-1), k,
+                              dim=-1)
+    cap = max(1, int(cfg.moe_capacity_factor * t * k / e))
+    rows = torch.full((e, cap), t, dtype=torch.int64, device=logits.device)
+    for i in range(e):
+        toks = (top_e == i).any(-1).nonzero().flatten()[:cap]
+        rows[i, :toks.numel()] = toks
+    return {"w": top_w / top_w.sum(-1, keepdim=True), "e": top_e,
+            "rows": rows}
+
+
+def moe_groups(cfg, x, route, r, fw, shards: int):
+    """DSG's group mask (E, cap, G) of every expert slot, as the EP body's
+    DRS step selects it: the slots' scores relu(f(x) f(W_e)) of each of
+    `shards` expert slices thresholded at that slice's own first slot
+    (`drs.select_mask`, the config's shared mode)."""
+    import torch
+    from repro_torch.core import drs
+    xg = torch.cat([x, x.new_zeros(1, x.shape[1])])[route["rows"]]
+    el, dcfg = cfg.moe_experts // shards, cfg.dsg.drs_cfg()
+    return torch.cat([drs.select_mask(drs.group_scores(
+        torch.bmm(xg[sl] @ r.t(), fw[sl]), dcfg), cfg.moe_d_ff, dcfg)
+        for sl in (slice(s * el, (s + 1) * el) for s in range(shards))])
+
+
+def moe_reference(cfg, x, w, route, groups=None, experts=None):
+    """The routed experts written plainly, one expert at a time: its
+    slots' tokens through its SwiGLU, the hidden units of the groups
+    `groups` (E, cap, G) drops zeroed, each token's outputs weighted and
+    added in ascending expert order from 0.0 in f32; in x's dtype.
+    `experts` limits the sum (a planted fault)."""
+    import torch
+    import torch.nn.functional as F
+    t, d = x.shape
+    x_pad = torch.cat([x, x.new_zeros(1, d)])
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for i in (range(cfg.moe_experts) if experts is None else experts):
+        rows = route["rows"][i]
+        xe = x_pad[rows]
+        h = F.silu(xe @ w[0][i]) * (xe @ w[1][i])
+        if groups is not None:
+            h = h * groups[i].repeat_interleave(cfg.dsg.block, dim=-1) \
+                .to(h.dtype)
+        y = (h @ w[2][i]).float()
+        live = rows < t
+        tok = rows[live]
+        wt = (route["w"][tok] * (route["e"][tok] == i)).sum(-1)
+        out[tok] += y[live] * wt[:, None]
+    return out.to(x.dtype)
+
+
+def masked_swiglu_grads(w: dict, x, gy, keep) -> dict:
+    """y, dx and dW (gate, up, down) of the SwiGLU FFN with the hidden
+    units outside `keep` (F,) zeroed: the gathered FFN's function on a
+    selection it is given, in the inputs' dtype."""
+    import torch
+    import torch.nn.functional as F
+    w = {k: v.detach().requires_grad_(True) for k, v in w.items()}
+    x = x.detach().requires_grad_(True)
+    h = F.silu(x @ w["w_gate"]) * (x @ w["w_up"]) * keep.to(x.dtype)
+    y = h @ w["w_down"]
+    g = torch.autograd.grad(y, [x, w["w_gate"], w["w_up"], w["w_down"]],
+                            grad_outputs=gy)
+    return {"y": y.detach(), "dx": g[0], "dw": list(g[1:])}
+
+
+def planted_faults(bound: dict, gaps: dict) -> None:
+    """Fail unless each planted fault's gap {name: (key, gap)} exceeds the
+    check's bound for its key: a check that cannot tell them is empty."""
+    for name, (key, gap) in gaps.items():
+        if not gap > bound[key]:
+            fail(f"phase 27's check cannot tell a planted fault ({name}): "
+                 f"gap {gap} against the bound {bound[key]}")
+
+
+def mesh_coll(rank, dev, spec) -> dict:
+    """Part (c) on four ranks: pipeline_forward over 'pipe' 4 with stages
+    of internlm2-1.8b's SwiGLU FFN in bf16; hierarchical_grad_reduce (pod
+    2 x data 2) on an f32 gradient of w_gate's shape, compress on and
+    off, and compressed_psum over 'data'; make_global_batch's rows.  Each
+    rank holds its results against the plain computation of all four
+    ranks' inputs, done on its own device."""
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import synthetic
+    from repro_torch.optim.compress import compressed_psum, ternarize
+    from repro_torch.optim.hierarchical import hierarchical_grad_reduce
+    from repro_torch.parallel.collectives import shard_map
+    from repro_torch.parallel.pipeline import (pipeline_forward,
+                                               sequential_reference)
+    from repro_torch.parallel.sharding import P, placements
+    cfg = mesh_cfg(ARCH, spec)
+    d, f = cfg.d_model, cfg.d_ff
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def normal(shape, scale, dt=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dt)
+    stages = {"w_gate": normal((4, d, f), d ** -0.5),
+              "w_up": normal((4, d, f), d ** -0.5),
+              "w_down": normal((4, f, d), f ** -0.5)}
+    n_micro, mb, seq = spec["pipe_micro"]
+    xm = normal((n_micro, mb, seq, d), 1.0)
+
+    def stage(p, h):
+        return h + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+
+    pmesh = DeviceMesh(dev.type, torch.arange(4), mesh_dim_names=("pipe",))
+
+    def pipe():
+        return pipeline_forward(stage, stages, xm, pmesh)
+
+    got = pipe().to_local()
+    want = sequential_reference(stage, stages, xm)
+    out["pipe"] = {"equal": bool(torch.equal(got, want)),
+                   "max_abs": float((got.float() - want.float()).abs()
+                                    .max()),
+                   "shape": list(got.shape)}
+    out["pipe"]["ms_p50"], _ = host_ms(pipe)
+    out["pipe"]["profile"] = collective_ms(pipe)
+    del stages, xm, got, want
+    gc.collect()
+
+    mesh = DeviceMesh(dev.type, torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("pod", "data"))
+    gs = [torch.randn((d, f), generator=torch.Generator(device=dev)
+                      .manual_seed(SEED + 100 + i), device=dev)
+          for i in range(4)]
+    sp = P(("pod", "data"))
+    shape = (4, d, f)
+
+    def mine(t):
+        return DTensor.from_local(t[None], mesh, placements(mesh, sp),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+    err0 = torch.zeros((d, f), device=dev)
+    pods = [(gs[0] + gs[1]) / 2, (gs[2] + gs[3]) / 2]
+    pod_dec = [c * s for c, s in (ternarize(p) for p in pods)]
+    data_dec = [c * s for c, s in (ternarize(g) for g in gs)]
+    my_pod = rank // 2
+    expect = {
+        "hier_off": ((pods[0] + pods[1]) / 2, err0),
+        "hier_on": ((pod_dec[0] + pod_dec[1]) / 2, pods[my_pod] -
+                    pod_dec[my_pod]),
+        "cpsum": (data_dec[2 * my_pod] + data_dec[2 * my_pod + 1],
+                  gs[rank] - data_dec[rank])}
+    fns = {"hier_off": lambda g, e: hierarchical_grad_reduce(
+               g, e, compress=False, mesh=mesh),
+           "hier_on": lambda g, e: hierarchical_grad_reduce(g, e, mesh=mesh),
+           "cpsum": lambda g, e: compressed_psum(g, "data", e, mesh=mesh)}
+    for name, fn in fns.items():
+        run = shard_map(fn, mesh, (sp, sp), (sp, sp))
+
+        def call():
+            return run(mine(gs[rank]), mine(err0))
+        red, err = call()
+        want_red, want_err = expect[name]
+        scale = float(want_red.abs().max())
+        out[name] = {
+            "err_red": float((red.to_local()[0] - want_red).abs().max())
+            / scale,
+            "err_buf": float((err.to_local()[0] - want_err).abs().max())
+            / max(1.0, float(want_err.abs().max())),
+            "ms_p50": host_ms(call)[0]}
+    del gs, pods, pod_dec, data_dec, expect
+    gc.collect()
+
+    kw = dict(global_batch=8, seq_len=256, vocab=cfg.vocab, seed=SEED)
+    bspec = {"tokens": P(("pod", "data"), None),
+             "labels": P(("pod", "data"), None)}
+    gb = synthetic.make_global_batch(0, mesh, bspec, **kw)
+    host = synthetic.batch_at(0, host_index=rank, host_count=4, **kw)
+    out["global_batch"] = {
+        "rows_equal": all(torch.equal(gb[k].to_local().cpu(), host[k])
+                          for k in host),
+        "shape": list(gb["tokens"].shape)}
+    return out
+
+
+MESH_PARTS = {"tp": mesh_tp, "ep": mesh_ep, "coll": mesh_coll}
+
+
+# -- the whole model sharded, one card a rank (`--mesh-cards`) -------------
+
+CARDS_FLAG = "--mesh-cards"        # chip_smoke.py --mesh-cards: 4 cards
+CARDS_STEPS = 4                    # (a)'s AdamW steps, f(W) every 2
+CARDS_REFRESH = 2
+
+
+def tp_cfg(spec, mode: str):
+    cfg = mesh_cfg(ARCH, spec)
+    dsg = cfg.dsg._replace(refresh_every=CARDS_REFRESH)
+    if mode == "gather":
+        dsg = dsg._replace(mode="gather_shared", n_chunks=2)
+    return cfg.replace(dsg=dsg)
+
+
+def tp_train_run(cfg, dev, spec, mesh=None) -> dict:
+    """CARDS_STEPS AdamW steps of `launch.train`'s trainer on
+    `synthetic.batch_at`'s batches (seed SEED), f(W) refreshed every
+    CARDS_REFRESH steps, on `mesh` or unsharded: losses, step ms, peak
+    memory and, on a mesh, the shards' bytes and a profiled step's time
+    in NCCL kernels."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    acfg = adamw.AdamWConfig(total_steps=CARDS_STEPS, warmup=1)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state, step_fn, refresh_fn = train.build_trainer(
+        cfg, acfg, seed=SEED, device=dev, mesh=mesh)
+    out = {"losses": [], "ms": []}
+    if mesh is not None:
+        params = dict(state["model"].named_parameters())
+        out["local_bytes"] = {
+            "params": nbytes(p.to_local() for p in params.values()),
+            "dsg": nbytes(t.to_local() for t in state["dsg"].values()),
+            "opt": nbytes(t.to_local() for k in ("m", "v", "master")
+                          if k in state["opt"]
+                          for t in state["opt"][k].values())}
+        del params
+    b, seq = spec["train_batch"]
+
+    def one(i):
+        nonlocal state
+        batch = synthetic.batch_at(i, global_batch=b, seq_len=seq,
+                                   vocab=cfg.vocab, seed=SEED)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss)
+        if (i + 1) % CARDS_REFRESH == 0:
+            state = refresh_fn(state)
+
+    for i in range(CARDS_STEPS):
+        one(i)
+    if cuda:
+        out["peak"] = torch.cuda.max_memory_allocated()
+    if mesh is not None and cuda:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one(CARDS_STEPS)
+        nccl = sum(e.device_time_total for e in prof.key_averages()
+                   if "nccl" in e.key.lower())
+        out["profiled_step_ms"] = out["ms"].pop()
+        out["losses"].pop()
+        out["nccl_device_ms"] = nccl / 1e3
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_tp_train(rank, dev, spec) -> dict:
+    """(a) on two cards: internlm2-1.8b trained on a (data 1, model 2)
+    mesh, DSG mask mode and gather_shared with n_chunks 2."""
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+    return {mode: tp_train_run(tp_cfg(spec, mode), dev, spec, mesh)
+            for mode in ("mask", "gather")}
+
+
+def upcast(model, dsg):
+    """The model's parameters and the DSG state in f32, in place of the
+    bf16 ones one at a time (DTensors keep their layout)."""
+    from torch import nn
+    for name in [n for n, _ in model.named_parameters()]:
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        p = getattr(mod, leaf)
+        setattr(mod, leaf, nn.Parameter(p.detach().float(),
+                                        requires_grad=p.requires_grad))
+        del p
+    return {k: upcast_tree(v) for k, v in dsg.items()}
+
+
+def upcast_tree(t):
+    import torch
+    if isinstance(t, dict):
+        return {k: upcast_tree(v) for k, v in t.items()}
+    return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+
+
+def ep_prefill_run(cfg, dev, spec, mesh=None) -> dict:
+    """deepseek-moe-16b's api.prefill of 4 x 128 seeded tokens, its DSG
+    state on and off, on `mesh` (every weight laid out by the specs) or
+    unsharded: the last logits in the config's bf16, then in f32 on the
+    same weights and DSG state upcast (`upcast`), and peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api, specs
+    from repro_torch.parallel.sharding import (axes_for_mesh,
+                                               distribute_model,
+                                               distribute_tree)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    b, p = spec["moe_tokens"]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (b, p), dtype=np.int64)).to(dev)
+    kw, out = {}, {}
+    if mesh is not None:
+        ax = axes_for_mesh(mesh)
+        distribute_model(model, mesh, specs.param_specs(model, cfg, ax, 2))
+        dsg = distribute_tree(dsg, mesh, specs.dsg_specs(dsg, cfg, ax, 2))
+        kw = dict(mesh=mesh, batch_axes=ax.batch)
+        out["local_weight_bytes"] = nbytes(
+            p.to_local() for p in model.parameters())
+        gc.collect()
+    for dt in ("bfloat16", "float32"):
+        if dt == "float32":
+            dsg = upcast(model, dsg)
+            gc.collect()
+        run_cfg = cfg.replace(dtype=dt)
+        out[dt] = {}
+        for name, state in (("on", dsg), ("off", None)):
+            cache = api.make_cache(run_cfg, b, p, device=dev)
+            logits, _ = api.prefill(model, state, run_cfg,
+                                    {"tokens": tokens}, cache, **kw)
+            logits = logits.full_tensor() if mesh is not None else logits
+            out[dt][name] = logits.float().cpu()
+            del cache
+        if cuda:
+            out["peak_" + dt] = torch.cuda.max_memory_allocated()
+    del model, dsg
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_ep_prefill(rank, dev, spec) -> dict:
+    """(b) on two cards: deepseek-moe-16b's prefill under expert
+    parallelism on a (data 1, model 2) mesh."""
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+    return ep_prefill_run(mesh_cfg(MOE_ARCH, spec), dev, spec, mesh)
+
+
+def mesh_remesh(rank, dev, spec) -> dict:
+    """remesh_state on four cards: internlm2-1.8b's trainer state from
+    (data 2, model 2) onto plan_after_loss(3, model=2)'s mesh, every leaf
+    gathered before and after."""
+    import torch
+    from repro_torch.launch import mesh as lmesh, train
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import full_tree, placements
+    from repro_torch.runtime.elastic import plan_after_loss, remesh_state
+    cfg = mesh_cfg(ARCH, spec)
+    mesh = lmesh.make_elastic_mesh(4, model=2, device_type=dev.type)
+    state, _, _ = train.build_trainer(cfg, adamw.AdamWConfig(), seed=SEED,
+                                      device=dev, mesh=mesh)
+    tree = {"params": dict(state["model"].named_parameters()),
+            "dsg": state["dsg"], "master": state["opt"]["master"]}
+    sp = {"params": state["specs"]["params"], "dsg": state["specs"]["dsg"],
+          "master": state["specs"]["opt"]["master"]}
+    plan = plan_after_loss(3, model=2)
+    new_mesh, moved = remesh_state(tree, sp, plan, device_type=dev.type)
+    # the ranks the plan drops hold no shards: they only take part in the
+    # old mesh's gathers
+    inside = rank < plan.n_devices
+    same, leaves, laid = True, 0, True
+    for part in tree:
+        for k in tree[part]:
+            a = full_tree(tree[part][k].detach())
+            b = full_tree(moved[part][k])
+            if inside:
+                same = same and bool(torch.equal(a, b))
+                laid = laid and list(moved[part][k].placements) == \
+                    placements(new_mesh, sp[part][k])
+            leaves += 1
+            del a, b
+    return {"same": same if inside else None, "leaves": leaves,
+            "laid": laid if inside else None,
+            "plan": [plan.n_devices, plan.data, plan.model, plan.dropped]}
+
+
+MESH_PARTS.update(tp_train=mesh_tp_train, ep_prefill=mesh_ep_prefill,
+                  remesh=mesh_remesh)
+
+
+def argmax_held(got, want, tol: float) -> tuple:
+    """(rows whose top-2 margin in `want` exceeds 2 x tol, of them the
+    rows whose argmax `got` keeps)."""
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    return int(clear.sum()), int((same & clear).sum())
+
+
+def mesh_cards_phase(dev, spec=None) -> dict:
+    """The whole model sharded over NCCL, one card a rank (`--mesh-cards`,
+    four cards; see main_mesh_cards).  `spec` sets the device, backend
+    and shapes ({} for four cards at full width)."""
+    import shutil
+    import tempfile
+    import torch
+    spec = dict({"device": dev.type, "backend": "nccl",
+                 "card_per_rank": True, "train_batch": [8, 256],
+                 "moe_tokens": [4, 128], "pipe_micro": [4, 2, 256]},
+                **(spec or {}))
+    out = {}
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        # (a) internlm2-1.8b trained on (data 1, model 2), 2 cards
+        t0 = time.perf_counter()
+        tp = mesh_spawn("tp_train", 2, tmp, spec)
+        out["tp_s"] = time.perf_counter() - t0
+        rows = []
+        for mode in ("mask", "gather"):
+            cfg = tp_cfg(spec, mode)
+            ref = {dt: tp_train_run(cfg.replace(dtype=dt), dev, spec)
+                   for dt in ("bfloat16", "float32")}
+            e = max(abs(a - b) for a, b in zip(ref["bfloat16"]["losses"],
+                                               ref["float32"]["losses"]))
+            gaps = [max(abs(a - b) for a, b in zip(
+                r[mode]["losses"], ref["bfloat16"]["losses"])) for r in tp]
+            row = {"mode": mode, "e": e, "gaps": gaps,
+                   "losses": tp[0][mode]["losses"],
+                   "unsharded": ref["bfloat16"]["losses"],
+                   "f32": ref["float32"]["losses"],
+                   "ms_p50": [sorted(r[mode]["ms"][1:])[
+                       len(r[mode]["ms"][1:]) // 2] for r in tp],
+                   "unsharded_ms_p50": sorted(
+                       ref["bfloat16"]["ms"][1:])[
+                           len(ref["bfloat16"]["ms"][1:]) // 2],
+                   "peak": [r[mode].get("peak") for r in tp],
+                   "unsharded_peak": ref["bfloat16"].get("peak"),
+                   "local_bytes": tp[0][mode]["local_bytes"],
+                   "profiled_step_ms": [r[mode].get("profiled_step_ms")
+                                        for r in tp],
+                   "nccl_device_ms": [r[mode].get("nccl_device_ms")
+                                      for r in tp]}
+            rows.append(row)
+            print(f"[cards] (a) {ARCH} {mode} on (data 1, model 2), "
+                  f"{CARDS_STEPS} AdamW steps of {spec['train_batch']}: "
+                  f"losses {[round(x, 5) for x in row['losses']]} against "
+                  f"unsharded {[round(x, 5) for x in row['unsharded']]} "
+                  f"(f32 {[round(x, 5) for x in row['f32']]}); gaps "
+                  f"{[round(g, 5) for g in gaps]} against 3E = "
+                  f"{3 * e:.5f}; step ms p50 {row['ms_p50']} against "
+                  f"{row['unsharded_ms_p50']:.1f}; peak {row['peak']} B "
+                  f"against {row['unsharded_peak']} B; shards "
+                  f"{row['local_bytes']} B; NCCL device ms in a profiled "
+                  f"step {row['nccl_device_ms']} of "
+                  f"{row['profiled_step_ms']}", flush=True)
+            if not all(math.isfinite(x) for r in tp
+                       for x in r[mode]["losses"]) or \
+                    max(gaps) > MESH_E_FACTOR * e:
+                fail(f"the sharded trainer ({mode}) is off: {row}")
+        out["tp"] = rows
+
+        # (b) deepseek-moe-16b's prefill under EP, 2 cards
+        t0 = time.perf_counter()
+        ep = mesh_spawn("ep_prefill", 2, tmp, spec)
+        out["ep_s"] = time.perf_counter() - t0
+        ref = ep_prefill_run(mesh_cfg(MOE_ARCH, spec), dev, spec)
+        ep_rows = {}
+        for name in ("off", "on"):
+            want, f32 = ref["bfloat16"][name], ref["float32"][name]
+            got, got32 = ep[0]["bfloat16"][name], ep[0]["float32"][name]
+            tol32 = MESH_F32_TOL * float(f32.abs().max())
+            clear, held = argmax_held(got32, f32, tol32)
+            ep_rows[name] = {
+                "e": float((want - f32).abs().max()),
+                "gap": float((got - want).abs().max()),
+                "gap_f32": float((got32 - f32).abs().max()),
+                "tol_f32": tol32, "argmax_clear": clear,
+                "argmax_held": held,
+                "finite": bool(torch.isfinite(got).all()
+                               and torch.isfinite(got32).all())}
+        out["ep"] = {"rows": ep_rows,
+                     "local_weight_bytes": [r["local_weight_bytes"]
+                                            for r in ep],
+                     "peak": [r.get("peak_bfloat16") for r in ep],
+                     "peak_f32": [r.get("peak_float32") for r in ep],
+                     "unsharded_peak": ref.get("peak_bfloat16")}
+        print(f"[cards] (b) {MOE_ARCH} api.prefill of "
+              f"{spec['moe_tokens']} tokens under EP on (data 1, model 2), "
+              f"last logits against the unsharded prefill, DSG off / on: "
+              f"bf16 max gap {[(round(r['gap'], 4), round(MESH_E_FACTOR * r['e'], 4)) for r in ep_rows.values()]}"
+              f" (gap, 3E); f32 on the same weights max gap "
+              f"{[(r['gap_f32'], r['tol_f32']) for r in ep_rows.values()]}"
+              f" (gap, {MESH_F32_TOL} of the largest logit), argmax kept "
+              f"where the f32 top-2 margin passes twice that "
+              f"{[(r['argmax_held'], r['argmax_clear']) for r in ep_rows.values()]}; "
+              f"weights {out['ep']['local_weight_bytes']} B a rank, peak "
+              f"{out['ep']['peak']} B (f32 {out['ep']['peak_f32']}) against "
+              f"{out['ep']['unsharded_peak']} B unsharded", flush=True)
+        off = ep_rows["off"]
+        if not (off["finite"] and ep_rows["on"]["finite"]
+                and off["gap"] <= MESH_E_FACTOR * off["e"]
+                and off["gap_f32"] <= off["tol_f32"]
+                and off["argmax_clear"] > 0
+                and off["argmax_held"] == off["argmax_clear"]):
+            fail(f"EP prefill (DSG off) is off the unsharded one: {off}")
+
+        # (c) the collectives on 4 cards, and remesh_state
+        if spec.get("coll", True):
+            coll = mesh_spawn("coll", 4, tmp, spec)
+            rm = mesh_spawn("remesh", 4, tmp, spec)
+            out["coll"], out["remesh"] = coll, rm
+            print(f"[cards] (c) 4 cards: pipeline equal "
+                  f"{[c['pipe']['equal'] for c in coll]}, ms p50 "
+                  f"{coll[0]['pipe']['ms_p50']:.2f}; reductions "
+                  f"{[[(c[k]['err_red'], c[k]['err_buf']) for k in ('hier_off', 'hier_on', 'cpsum')] for c in coll]}"
+                  f", ms p50 {[round(coll[0][k]['ms_p50'], 2) for k in ('hier_off', 'hier_on', 'cpsum')]}; "
+                  f"remesh_state onto {rm[0]['plan']}: {rm[0]['leaves']} "
+                  f"leaves equal {[r['same'] for r in rm]}, laid by their "
+                  f"specs {[r['laid'] for r in rm]}", flush=True)
+            for c in coll:
+                if not c["pipe"]["equal"] or any(
+                        max(c[k]["err_red"], c[k]["err_buf"]) > MESH_COLL_TOL
+                        for k in ("hier_off", "hier_on", "cpsum")):
+                    fail(f"a collective is off on four cards: {c}")
+            kept = rm[:rm[0]["plan"][0]]
+            if not all(r["same"] and r["laid"] for r in kept):
+                fail(f"remesh_state lost a leaf: {rm}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def main_mesh_cards() -> int:
+    """`python3 chip_smoke.py --mesh-cards`: the whole model sharded with
+    one card a rank over NCCL, on four cards.  (a) internlm2-1.8b trains
+    4 AdamW steps (batch 8 x 256 of `synthetic.batch_at`, seed 0, bf16
+    with f32 masters, remat, f(W) every 2) on a (data 1, model 2) mesh,
+    in DSG mask mode and in gather_shared with n_chunks 2, each against
+    the same run unsharded on card 0 after the ranks exit: losses finite
+    and within MESH_E_FACTOR x E of the unsharded ones, E the unsharded
+    run's own bf16-against-f32 gap at the same steps (ROADMAP.md §3's
+    bf16 rule); step ms p50, peak memory, the shards' bytes and the NCCL
+    kernels' device time in a profiled step.  (b) deepseek-moe-16b's
+    api.prefill of 4 x 128 seeded tokens under expert parallelism on (data
+    1, model 2) against the unsharded prefill, DSG on and off, in bf16 and
+    then in f32 on the same weights upcast.  With it off: in bf16 the last
+    logits within MESH_E_FACTOR x E (E: the unsharded bf16-against-f32
+    gap), a weak bound at full depth, where the random model turns
+    rounding into gaps near the logits' own size; in f32 within
+    MESH_F32_TOL of the largest logit, and argmax equal on every row
+    whose top-2 margin exceeds twice that, at least one such row.  With
+    it on the gaps are printed (each expert shard thresholds at its own
+    first slot, as the reference's EP body does).  About 16.9 GB of bf16
+    weights a rank: 15.5 GB of the 31.0 GB of routed experts and half of
+    the other 2.8 GB (33.8 GB in f32).
+    (c) phase 27's collectives on four cards, and remesh_state of the
+    (data 2, model 2) trainer state onto plan_after_loss(3, model=2)'s
+    mesh, every leaf equal.  Prints the card line and `{"ok": true}`."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke --mesh-cards: needs four CUDA devices",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    out = mesh_cards_phase(torch.device("cuda"))
+    print("[cards] stats " + json.dumps(out, default=str), flush=True)
+    print(f"[cards] {time.perf_counter() - t0:.2f}s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| over max |b|, in f32."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def mesh_phase(dev, spec=None) -> dict:
+    """Phase 27: the model's parallel parts on rank processes of one card,
+    a gloo group each part (see the module docstring).  `spec` sets the
+    device and the shapes ({} for the card at full width)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import dsg_linear as dl
+    from repro_torch.launch import dryrun, mesh as lmesh
+    from repro_torch.models import moe
+    spec = dict({"device": dev.type, "ffn_tokens": [8, 256],
+                 "moe_tokens": [4, 128], "pipe_micro": [4, 2, 256]},
+                **(spec or {}))
+    launches_before = mesh_launches()
+    out = {"cpu_only": MESH_CPU_ONLY}
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        # the dry run's per-device bytes on (data 1, model 2)
+        cfg = mesh_cfg(ARCH, spec)
+        with lmesh.fake_world(2):
+            fmesh = lmesh.make_elastic_mesh(2, model=2, device_type="cpu")
+            over = [f"{k}={v!r}" for k, v in
+                    spec.get("overrides", {}).get(ARCH, {}).items()]
+            mem = dryrun.memory(dryrun.build_cell(ARCH, "train_4k", fmesh,
+                                                  overrides=over))
+        out["dryrun"] = {k: mem[k] for k in ("params", "dsg", "opt")}
+
+        # (a) the trainer's layout and the sharded gather FFN, 2 ranks
+        t0 = time.perf_counter()
+        tp = mesh_spawn("tp", 2, tmp, spec)
+        out["tp_s"] = time.perf_counter() - t0
+        dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
+        w, st, x, gy = ffn_case(cfg, dev, torch.bfloat16, spec["ffn_tokens"])
+        wb = {k: v.detach().requires_grad_(True) for k, v in w.items()}
+        xb = x.detach().requires_grad_(True)
+        ffn = type("FFN", (), wb)
+
+        def unsharded():
+            yy = dl.swiglu_dsg_gather(ffn, xb, st, dcfg)
+            return yy, torch.autograd.grad(
+                yy, [xb, wb["w_gate"], wb["w_up"], wb["w_down"]],
+                grad_outputs=gy)
+        y, g = unsharded()
+        want = {"y": y.detach(), "dx": g[0], "dw": list(g[1:])}
+        unsharded_ms = host_ms(unsharded)[0]
+        # E with the selection held fixed: the f32 function on the groups
+        # the bf16 run kept (bf16 and f32 scores pick different groups)
+        blk = dcfg.block
+        keep = torch.zeros(cfg.d_ff // blk, device=dev)
+        keep[dl.shared_topk_indices(x, st, dcfg, cfg.d_ff)] = 1.0
+        keep = keep.repeat_interleave(blk)
+        f32 = masked_swiglu_grads({k: v.float() for k, v in w.items()},
+                                  x.float(), gy.float(), keep)
+        e_y, e_dx = rel_gap(want["y"], f32["y"]), rel_gap(want["dx"],
+                                                          f32["dx"])
+        e_dw = max(rel_gap(a, b) for a, b in zip(want["dw"], f32["dw"]))
+        bound = {"y": MESH_E_FACTOR * e_y, "dx": MESH_E_FACTOR * e_dx,
+                 "dw": MESH_E_FACTOR * e_dw}
+        # planted faults: the output zeroed, model shard 1's groups dropped
+        half = cfg.d_ff // 2
+        dropped = masked_swiglu_grads(
+            w, x, gy, torch.cat([keep[:half], torch.zeros_like(keep[half:])]))
+        faults = {"y zeroed": ("y", rel_gap(torch.zeros_like(want["y"]),
+                                            want["y"])),
+                  "shard 1 dropped, y": ("y", rel_gap(dropped["y"],
+                                                      want["y"])),
+                  "shard 1 dropped, dx": ("dx", rel_gap(dropped["dx"],
+                                                        want["dx"]))}
+        planted_faults(bound, faults)
+        tpr = {"e_y": e_y, "e_dx": e_dx, "e_dw": e_dw, "ranks": [],
+               "unsharded_ms": unsharded_ms,
+               "faults": {k: v[1] for k, v in faults.items()}}
+        for r, res in enumerate(tp):
+            cols = slice(r * half, (r + 1) * half)
+            dw_gap = max(rel_gap(res["dw"][0].to(dev), want["dw"][0][:, cols]),
+                         rel_gap(res["dw"][1].to(dev), want["dw"][1][:, cols]),
+                         rel_gap(res["dw"][2].to(dev), want["dw"][2][cols]))
+            tpr["ranks"].append({
+                "y_gap": rel_gap(res["y"].to(dev), want["y"]),
+                "dx_gap": rel_gap(res["dx"].to(dev), want["dx"]),
+                "dw_gap": dw_gap,
+                "local_bytes": res["local_bytes"],
+                "state_allocated": res.get("state_allocated"),
+                "layout_peak": res.get("layout_peak"),
+                "ffn_peak": res.get("ffn_peak"), "ms_p50": res["ms_p50"],
+                "profile": res["profile"],
+                "kernel_launches": res["kernel_launches"]})
+        out["tp"] = tpr
+        del want, f32, dropped, w, wb, st, x, xb, gy, g, y, ffn, keep
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[mesh] (a) internlm2-1.8b on (data 1, model 2), 2 gloo "
+              f"ranks on one {dev.type} device: the trainer's state as "
+              f"DTensors, rank 0 {tp[0]['local_bytes']} B against the dry "
+              f"run's per-device {out['dryrun']} B; allocated "
+              f"{tp[0].get('state_allocated')} B, layout peak "
+              f"{tp[0].get('layout_peak')} B", flush=True)
+        print(f"[mesh] (a) swiglu_dsg_gather_sharded fwd+bwd at x "
+              f"{spec['ffn_tokens']} x {cfg.d_model}, F {cfg.d_ff}, bf16: "
+              f"gaps to the unsharded swiglu_dsg_gather (n_chunks 2) "
+              f"{[(round(t['y_gap'], 6), round(t['dx_gap'], 6), round(t['dw_gap'], 6)) for t in tpr['ranks']]} "
+              f"(y, dx, dW) against {MESH_E_FACTOR} x E (E, the bf16 run's "
+              f"gap to f32 on the groups it kept: y {e_y:.6f}, dx "
+              f"{e_dx:.6f}, dW {e_dw:.6f}); planted faults' gaps "
+              f"{ {k: round(v, 6) for k, v in tpr['faults'].items()} }; ms p50 {[round(t['ms_p50'], 2) for t in tpr['ranks']]} "
+              f"(unsharded {unsharded_ms:.2f}); "
+              f"collectives {tp[0]['profile']}", flush=True)
+        for t in tpr["ranks"]:
+            if t["local_bytes"] != out["dryrun"]:
+                fail(f"a rank's shards {t['local_bytes']} are not the dry "
+                     f"run's {out['dryrun']}")
+            if (not t["y_gap"] <= bound["y"] or not t["dx_gap"] <= bound["dx"]
+                    or not t["dw_gap"] <= bound["dw"]):
+                fail(f"the sharded gather FFN is off the unsharded one: {t}")
+
+        # (b) one MoE layer's experts under expert parallelism, 2 ranks.
+        # With DSG's shared threshold each shard thresholds at its own
+        # first slot, as the reference's shard_map body does (ROADMAP.md
+        # §3), so the plain computation it is held against runs the body
+        # per expert slice and sums; without DSG that is the unsharded
+        # body itself
+        t0 = time.perf_counter()
+        ep = mesh_spawn("ep", 2, tmp, spec)
+        out["ep_s"] = time.perf_counter() - t0
+        mcfg = mesh_cfg(MOE_ARCH, spec)
+        w, router, r, fw, x = moe_case(mcfg, dev, torch.bfloat16,
+                                       spec["moe_tokens"])
+        logits = x.float() @ router
+        route = moe_route(mcfg, logits)
+        # E with DSG's selection held fixed: the f32 experts on the groups
+        # the bf16 scores kept, each expert shard at its own first slot
+        groups = moe_groups(mcfg, x, route, r, fw, 2)
+        ref = {}
+        for dt in (torch.bfloat16, torch.float32):
+            wd, xd = tuple(t.to(dt) for t in w), x.to(dt)
+            ref[dt] = {"on": moe_reference(mcfg, xd, wd, route, groups),
+                       "off": moe_reference(mcfg, xd, wd, route)}
+        bf, f32 = ref[torch.bfloat16], ref[torch.float32]
+        e_on, e_off = rel_gap(bf["on"], f32["on"]), rel_gap(bf["off"],
+                                                            f32["off"])
+        bound = {"on": MESH_E_FACTOR * e_on, "off": MESH_E_FACTOR * e_off}
+        # planted faults: the output zeroed, model shard 1's experts dropped
+        first = range(mcfg.moe_experts // 2)
+        faults = {"y zeroed": ("off", rel_gap(torch.zeros_like(bf["off"]),
+                                              bf["off"])),
+                  "shard 1 dropped, DSG off": ("off", rel_gap(moe_reference(
+                      mcfg, x, w, route, experts=first), bf["off"])),
+                  "shard 1 dropped, DSG on": ("on", rel_gap(moe_reference(
+                      mcfg, x, w, route, groups, experts=first), bf["on"]))}
+        planted_faults(bound, faults)
+        gaps = [(rel_gap(res["y"].to(dev), bf["on"]),
+                 rel_gap(res["y_off"].to(dev), bf["off"])) for res in ep]
+        # the shard-local threshold against one over all 64 experts
+        drift = rel_gap(moe_reference(mcfg, x, w, route, moe_groups(
+            mcfg, x, route, r, fw, 1)), bf["on"])
+        full = SimpleNamespace(w_gate=w[0], w_up=w[1], w_down=w[2])
+        cap = moe.capacity(x.shape[0], mcfg.moe_experts, mcfg.moe_topk,
+                           mcfg.moe_capacity_factor)
+        plain_ms = host_ms(lambda: moe.routed_body(
+            x, logits, full, mcfg.moe_experts, mcfg.moe_topk, cap, fw, r,
+            mcfg.dsg))[0]
+        out["ep"] = {"e_on": e_on, "e_off": e_off, "gaps": gaps,
+                     "faults": {k: v[1] for k, v in faults.items()},
+                     "dsg_shard_threshold_gap": drift,
+                     "local_expert_bytes": [res["local_expert_bytes"]
+                                            for res in ep],
+                     "peak": [res.get("peak") for res in ep],
+                     "ms_p50": [res["ms_p50"] for res in ep],
+                     "unsharded_ms": plain_ms,
+                     "profile": ep[0]["profile"],
+                     "kernel_launches": [res["kernel_launches"]
+                                         for res in ep]}
+        del ref, bf, f32, w, router, r, fw, x, logits, route, groups, full
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[mesh] (b) {MOE_ARCH} one layer's routed experts under EP "
+              f"({mcfg.moe_experts // 2} of {mcfg.moe_experts} a rank, "
+              f"{spec['moe_tokens']} tokens, bf16): gaps (DSG on, off) to "
+              f"the plain experts {[(round(a, 6), round(b, 6)) for a, b in gaps]}"
+              f" against {MESH_E_FACTOR} x E (E, the plain bf16 experts' "
+              f"gap to f32 on the same DSG groups: on {e_on:.6f}, off "
+              f"{e_off:.6f}); planted faults' gaps "
+              f"{ {k: round(v, 6) for k, v in out['ep']['faults'].items()} }"
+              f"; the shard-local DSG threshold moves the plain output "
+              f"{drift:.6f} from one over all experts; local expert "
+              f"bytes {out['ep']['local_expert_bytes']}; ms p50 "
+              f"{[round(m, 2) for m in out['ep']['ms_p50']]} (unsharded "
+              f"routed_body {plain_ms:.2f}); collectives "
+              f"{ep[0]['profile']}", flush=True)
+        if not all(a <= bound["on"] and b <= bound["off"] for a, b in gaps):
+            fail(f"expert parallelism is off the plain experts: {gaps}")
+
+        # (c) the collectives at full-width shapes, 4 ranks
+        t0 = time.perf_counter()
+        coll = mesh_spawn("coll", 4, tmp, spec)
+        out["coll_s"] = time.perf_counter() - t0
+        out["coll"] = coll
+        c0 = coll[0]
+        print(f"[mesh] (c) 4 gloo ranks: pipeline_forward (pipe 4, "
+              f"{spec['pipe_micro']} microbatches of SwiGLU stages, bf16) "
+              f"equal to sequential_reference on every rank "
+              f"{[c['pipe']['equal'] for c in coll]}, ms p50 "
+              f"{c0['pipe']['ms_p50']:.2f}; hierarchical off/on and "
+              f"compressed_psum gaps (reduced, buffer) "
+              f"{[[(round(c[k]['err_red'], 9), round(c[k]['err_buf'], 9)) for k in ('hier_off', 'hier_on', 'cpsum')] for c in coll]}"
+              f", ms p50 {[round(c0[k]['ms_p50'], 2) for k in ('hier_off', 'hier_on', 'cpsum')]}; "
+              f"make_global_batch rows "
+              f"{[c['global_batch']['rows_equal'] for c in coll]} of "
+              f"{c0['global_batch']['shape']}", flush=True)
+        for c in coll:
+            if not c["pipe"]["equal"] or not c["global_batch"]["rows_equal"]:
+                fail(f"pipeline or global batch off on a rank: {c}")
+            for k in ("hier_off", "hier_on", "cpsum"):
+                if max(c[k]["err_red"], c[k]["err_buf"]) > MESH_COLL_TOL:
+                    fail(f"{k} off the plain reduction: {c[k]}")
+        print(f"[mesh] on CPU ranks only: {MESH_CPU_ONLY}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = [t["kernel_launches"] for t in out["tp"]["ranks"]] + \
+        out["ep"]["kernel_launches"] + \
+        [c["kernel_launches"] for c in out["coll"]] + [mesh_launches()]
+    if any(any(v for v in k.values()) for k in launched) or \
+            mesh_launches() != launches_before:
+        fail(f"a kernel launched in phase 27: {launched}")
+    return out
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) > 1 and sys.argv[1] == MESH_RANK_FLAG:
+        return mesh_worker(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == CARDS_FLAG:
+        return main_mesh_cards()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3822,6 +5010,14 @@ def main() -> int:
     plan = plan_phase(dev)
     print("[plan] stats " + json.dumps(plan, default=str), flush=True)
     print(f"[phase 26] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 27. the parallel parts on rank processes of the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meshed = mesh_phase(dev)
+    print("[mesh] stats " + json.dumps(meshed, default=str), flush=True)
+    print(f"[phase 27] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

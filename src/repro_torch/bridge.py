@@ -38,6 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsg_linear import DSGConfig
+from repro_torch.parallel.sharding import full_tree
 from repro_torch.models import encdec, recurrent, transformer
 from repro_torch.models.api import require_device
 from repro_torch.models.transformer import set_trainable
@@ -137,7 +138,7 @@ def to_reference_tree(flat: dict) -> dict:
     tree, stacks = {}, {}
     for name, t in flat.items():
         path, idx = reference_path(name)
-        t = t.detach() if t.is_meta else t.detach().cpu()
+        t = t.detach() if t.is_meta else full_tree(t.detach()).cpu()
         if idx:
             stacks.setdefault(path, []).append((idx, t))
         else:
@@ -149,6 +150,16 @@ def to_reference_tree(flat: dict) -> dict:
         stacked = torch.stack([t for _, t in items])
         _put(tree, path, stacked.reshape(grid + stacked.shape[1:]))
     return tree
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src) for a whole `src`; a DTensor `dst` takes its own
+    shards of it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(dst, DTensor):
+        src = distribute_tensor(src.to(dst.to_local().device),
+                                dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -170,10 +181,12 @@ def state_tree(model: nn.Module, dsg: Optional[dict], opt: dict,
                err: Optional[dict] = None) -> dict:
     """The trainer's state as the reference's `{'params', 'dsg', 'opt',
     'err'}` tree of host tensors (no 'dsg' without DSG, no 'err' without
-    gradient compression, as the reference's pytree has no leaves there)."""
+    gradient compression, as the reference's pytree has no leaves there).
+    DTensor leaves (a sharded trainer's) are gathered whole, a collective
+    every rank of their mesh takes part in."""
     st = {"params": to_reference_tree(dict(model.named_parameters()))}
     if dsg is not None:
-        st["dsg"] = {k: v.detach().cpu() for k, v in dsg.items()}
+        st["dsg"] = {k: full_tree(v.detach()).cpu() for k, v in dsg.items()}
     st["opt"] = {"step": torch.tensor(opt["step"], dtype=torch.int32),
                  "m": to_reference_tree(opt["m"]),
                  "v": to_reference_tree(opt["v"])}
@@ -201,23 +214,23 @@ def state_to_numpy(model: nn.Module, dsg: Optional[dict], opt: dict,
 def load_state_tree(tree: dict, model: nn.Module, dsg: Optional[dict],
                     opt: dict, err: Optional[dict] = None) -> None:
     """Copy a `state_tree`-shaped tree (a restored checkpoint) into the
-    trainer's state, in place."""
+    trainer's state, in place; a DTensor leaf takes its own shards."""
     names = [n for n, _ in model.named_parameters()]
     with torch.no_grad():
         for n, t in from_reference_tree(tree["params"], names).items():
-            model.get_parameter(n).copy_(t)
+            _assign(model.get_parameter(n), t)
         if dsg is not None:
             for k, v in dsg.items():
-                v.copy_(_as_tensor(tree["dsg"][k]))
+                _assign(v, _as_tensor(tree["dsg"][k]))
         opt["step"] = int(tree["opt"]["step"])
         for key in ("m", "v", "master"):
             if key in opt:
                 for n, t in from_reference_tree(tree["opt"][key],
                                                 names).items():
-                    opt[key][n].copy_(t)
+                    _assign(opt[key][n], t)
         if err is not None:
             for n, t in from_reference_tree(tree["err"], names).items():
-                err[n].copy_(t)
+                _assign(err[n], t)
 
 
 def opt_from_jax(opt: dict, model: nn.Module, device="cuda") -> dict:

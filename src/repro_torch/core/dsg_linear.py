@@ -18,6 +18,10 @@ the tanh GELU of the reference's `jax.nn.gelu`.  The SwiGLU paths:
                           (batch-summed group scores, per-chunk top-k); only
                           the kept groups' weight blocks are gathered and
                           multiplied (`mode="gather_shared"`).
+  * `swiglu_dsg_gather_sharded` — the same under tensor parallelism: each
+                          'model' shard selects among and gathers its own
+                          groups (`mode="gather_shared"` inside a parallel
+                          context whose model axis divides F in blocks).
   * `swiglu_csr_masked` — the masked-dense reference for per-lane
                           group-CSR patterns.
   * `swiglu_csr`        — serving decode over per-lane group-CSR patterns
@@ -190,6 +194,49 @@ def swiglu_dsg_gather(p: SwiGLU, x: torch.Tensor, state: dict,
     return torch.einsum("...kb,kbd->...d", h, wd)
 
 
+def swiglu_dsg_gather_sharded(p: SwiGLU, x: torch.Tensor, state: dict,
+                              cfg: DSGConfig) -> torch.Tensor:
+    """gather_shared under tensor parallelism, inside a shard_map over the
+    parallel context's mesh: each 'model' shard scores its own groups
+    (summed over its rows of the batch), keeps the top
+    ceil((1 - gamma) · G_local) of them (ties to the lower group, as
+    lax.top_k's), gathers its own weight blocks, and the shards' outputs
+    are summed over 'model'.  No weight crosses a shard; the selection is
+    balanced per shard (n_chunks = shards)."""
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.collectives import psum, shard_map
+    from repro_torch.parallel.sharding import P
+
+    ctx = pctx.current()
+    mesh, ba = ctx.mesh, ctx.ax.batch
+    d = p.w_gate.shape[0]
+    blk = cfg.block
+    drs_cfg = cfg.drs_cfg()
+
+    def body(x_l, wg, wu, wd, r, fw):
+        g_loc = wg.shape[1] // blk
+        keep = max(1, int((1.0 - cfg.gamma) * g_loc + 0.999999))
+        fx = projection.project_rows(r, x_l)
+        scores = drs.group_scores(fx @ fw, drs_cfg)
+        scores = scores.reshape(-1, g_loc).sum(dim=0)              # (G_loc,)
+        idx = torch.sort(scores.detach(), descending=True,
+                         stable=True).indices[:keep]
+        idx = torch.sort(idx).values
+        wg3 = wg.reshape(d, g_loc, blk).transpose(0, 1)[idx]       # (K, d, b)
+        wu3 = wu.reshape(d, g_loc, blk).transpose(0, 1)[idx]
+        wd3 = wd.reshape(g_loc, blk, d)[idx]                       # (K, b, d)
+        h = (F.silu(torch.einsum("...d,kdb->...kb", x_l, wg3))
+             * torch.einsum("...d,kdb->...kb", x_l, wu3))
+        return psum(torch.einsum("...kb,kbd->...d", h, wd3), "model", mesh)
+
+    nd = (None,) * (x.ndim - 1)
+    return shard_map(
+        body, mesh,
+        (P(ba, *nd), P(None, "model"), P(None, "model"), P("model", None),
+         P(), P(None, "model")),
+        P(ba, *nd))(x, p.w_gate, p.w_up, p.w_down, state["r"], state["fw"])
+
+
 FFN_MODES = ("dense", "mask", "gather_shared")
 _calls = dict.fromkeys(FFN_MODES, 0)
 
@@ -208,6 +255,11 @@ def swiglu_ffn(p: SwiGLU, x: torch.Tensor, state: Optional[dict],
     if mode == "dense":
         return swiglu_dense(p, x)
     if mode == "gather_shared":
+        from repro_torch.parallel import context as pctx
+        ctx = pctx.current()
+        if (ctx is not None and ctx.n_model > 1
+                and p.w_gate.shape[1] % (ctx.n_model * cfg.block) == 0):
+            return swiglu_dsg_gather_sharded(p, x, state, cfg)
         return swiglu_dsg_gather(p, x, state, cfg)
     return swiglu_dsg_mask(p, x, state, cfg)
 

@@ -49,6 +49,45 @@ def batch_at(step: int, *, global_batch: int, seq_len: int, vocab: int,
     return out
 
 
+def make_global_batch(step: int, mesh, batch_spec: dict, **kw) -> dict:
+    """The batch for `step` as DTensors on `mesh`, each laid out by its
+    spec in `batch_spec` (`models.specs.input_specs`), built the
+    multi-host way: each rank makes only its own rows, as host i of n of
+    `batch_at(step, host_index=i, host_count=n, **kw)`, where i is its
+    coordinate over the axes that split the rows and n their product, and
+    wraps them with `DTensor.from_local`.  The global batch is those hosts'
+    slices in order: `batch_at`'s whole batch when nothing splits the rows
+    (the reference's make_global_batch takes the host's batch as the
+    global one, which is that case)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import placements
+
+    specs = set(map(tuple, batch_spec.values()))
+    if len(specs) != 1 or any(e is not None for e in next(iter(specs))[1:]):
+        raise ValueError(f"make_global_batch splits every input by its "
+                         f"rows alone, got {batch_spec}")
+    rows = next(iter(specs))[0]
+    axes = () if rows is None else (rows if isinstance(rows, tuple)
+                                    else (rows,))
+    names = list(mesh.mesh_dim_names)
+    host_index, host_count = 0, 1
+    for a in axes:       # row-major over the axes, the first one major
+        n = mesh.size(names.index(a))
+        host_index = host_index * n + mesh.get_local_rank(a)
+        host_count *= n
+    local = batch_at(step, host_index=host_index, host_count=host_count,
+                     **kw)
+    device = mesh.device_type
+    out = {}
+    for name, t in local.items():
+        shape = (t.shape[0] * host_count,) + tuple(t.shape[1:])
+        out[name] = DTensor.from_local(
+            t.to(device), mesh, placements(mesh, batch_spec[name]),
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
 def stream(start_step: int = 0, **kw) -> Iterator[dict]:
     step = start_step
     while True:

@@ -25,8 +25,9 @@ attention's tiles).  Meta tensors are not on the card, so `kernels/ops.py`
 takes the plain versions, and no kernel is launched.
 
 It needs no card: the one entry point of the port that runs on the CPU
-by design.  No collective is traced: the model runs sharded from
-ROADMAP.md queue 1 item 9b, so a record's `collectives` is null.  The
+by design.  No collective is traced: the sharded step's collectives on
+the fake backend are ROADMAP.md queue 1 item 9c, so a record's
+`collectives` is null.  The
 figures for the 256- and 512-rank meshes are computed, not measured.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
@@ -370,8 +371,8 @@ def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
             "trace_peak_bytes": f"MemTracker's peak of the step traced at "
                                 f"one data shard's batch ({batch}) with "
                                 f"the model unsharded",
-            "collectives": "not traced: the model runs sharded from "
-                           "ROADMAP.md queue 1 item 9b"},
+            "collectives": "not traced yet: ROADMAP.md queue 1 item "
+                           "9c"},
         "status": "ok"})
     return rec
 

@@ -5,7 +5,7 @@ recurrent ones (xlstm, zamba) and the encoder-decoder one (encdec).
   init_model(cfg, generator=, device=)          -> the family's nn.Module
   init_dsg(model, cfg, generator=, device=)     -> DSG state or None
   refresh_dsg(dsg, model, cfg)                  -> DSG state, f(W) anew
-  train_loss(model, dsg, cfg, batch)            -> scalar loss
+  train_loss(model, dsg, cfg, batch, mesh=, batch_axes=) -> scalar loss
   make_cache(cfg, batch, max_seq, device=)      -> decode state (None for
                                                    xlstm, built lazily;
                                                    max_seq // dec_ratio
@@ -24,9 +24,18 @@ group-CSR FFN; nor does the encoder-decoder family, whose prefill takes
 'memory': the encoder K/V}.  The entry points that make tensors put them
 on the card unless the caller asks for the CPU (`device="cpu"`); with no
 card they raise.
+
+Sharded (the decoder and encoder-decoder families, as in the reference,
+whose recurrent families take no mesh): `train_loss`, `prefill`,
+`decode_step` and `prefill_slot` take the reference's `mesh` and
+`batch_axes`, for a model whose weights are DTensors on that mesh
+(`parallel.sharding.distribute_model`).  The call runs under the mesh's
+parallel context, installed here unless the caller has; a backward of a
+sharded loss runs under it too (`parallel.context.use_mesh`).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
@@ -34,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, recurrent, transformer
+from repro_torch.parallel import context as pctx
 
 DECODER_FAMILIES = transformer.DECODER_FAMILIES
 RECURRENT_FAMILIES = ("xlstm", "zamba")
@@ -99,17 +109,38 @@ def refresh_dsg(dsg: Optional[dict], model, cfg: ModelConfig):
     return transformer.refresh_dsg(dsg, model, cfg)
 
 
-def train_loss(model, dsg, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _mesh_ctx(cfg: ModelConfig, mesh):
+    """The parallel context of `mesh` unless it is installed already; a
+    recurrent family takes no mesh."""
+    if mesh is None:
+        return nullcontext()
+    if cfg.family in RECURRENT_FAMILIES:
+        raise TypeError(f"family {cfg.family!r} takes no mesh (the "
+                        f"reference's recurrent families run unsharded)")
+    ctx = pctx.current()
+    if ctx is not None and ctx.mesh is mesh:
+        return nullcontext()
+    return pctx.use_mesh(mesh)
+
+
+def train_loss(model, dsg, cfg: ModelConfig, batch: dict, mesh=None,
+               batch_axes=None) -> torch.Tensor:
     _require_family(cfg, "train_loss")
+    with _mesh_ctx(cfg, mesh):
+        return _train_loss(model, dsg, cfg, batch, mesh, batch_axes)
+
+
+def _train_loss(model, dsg, cfg: ModelConfig, batch: dict, mesh,
+                batch_axes) -> torch.Tensor:
     if cfg.family == "encdec":
-        return encdec.train_loss(model, dsg, cfg, batch)
+        return encdec.train_loss(model, dsg, cfg, batch, mesh, batch_axes)
     if cfg.family == "xlstm":
         logits, _ = recurrent.xlstm_forward(model, dsg, cfg, batch["tokens"])
         return transformer.cross_entropy(logits, batch["labels"])
     if cfg.family == "zamba":
         logits, _ = recurrent.zamba_forward(model, dsg, cfg, batch["tokens"])
         return transformer.cross_entropy(logits, batch["labels"])
-    return transformer.train_loss(model, dsg, cfg, batch)
+    return transformer.train_loss(model, dsg, cfg, batch, mesh, batch_axes)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -135,16 +166,24 @@ def _refuse_serving_features(cfg: ModelConfig, what: str) -> None:
 
 @torch.no_grad()
 def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
-            collect_drs_scores: bool = False):
+            mesh=None, batch_axes=None, collect_drs_scores: bool = False):
     """The prompt's last logits (B, V) and the decode state.  A zamba
     prefill ignores `cache`, as the reference's does: its K/V come back
     with the prompt's length, which decode then uses as a ring.  An
     encoder-decoder prefill takes inputs {'frames', 'tokens'}."""
     _require_family(cfg, "prefill")
+    with _mesh_ctx(cfg, mesh):
+        return _prefill(model, dsg, cfg, inputs, cache, mesh, batch_axes,
+                        collect_drs_scores)
+
+
+def _prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache, mesh,
+             batch_axes, collect_drs_scores: bool):
     if cfg.family in DECODER_FAMILIES:
         return transformer.prefill(model, dsg, cfg, inputs["tokens"], cache,
                                    prefix_embeds=inputs.get("prefix_embeds"),
-                                   collect_drs_scores=collect_drs_scores)
+                                   collect_drs_scores=collect_drs_scores,
+                                   mesh=mesh, batch_axes=batch_axes)
     if collect_drs_scores:
         _refuse_serving_features(cfg, "DRS score collection")
     if cfg.family == "encdec":
@@ -162,14 +201,23 @@ def prefill(model, dsg, cfg: ModelConfig, inputs: dict, cache,
 
 @torch.no_grad()
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
-                live_pages=None, ffn_csr=None,
+                live_pages=None, mesh=None, batch_axes=None, ffn_csr=None,
                 collect_drs_scores: bool = False):
     _require_family(cfg, "decode_step")
+    with _mesh_ctx(cfg, mesh):
+        return _decode_step(model, dsg, cfg, token, cache, pos, live_pages,
+                            mesh, batch_axes, ffn_csr, collect_drs_scores)
+
+
+def _decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
+                 live_pages, mesh, batch_axes, ffn_csr,
+                 collect_drs_scores: bool):
     if cfg.family in DECODER_FAMILIES:
         return transformer.decode_step(model, dsg, cfg, token, cache, pos,
                                        live_pages=live_pages,
                                        ffn_csr=ffn_csr,
-                                       collect_drs_scores=collect_drs_scores)
+                                       collect_drs_scores=collect_drs_scores,
+                                       mesh=mesh, batch_axes=batch_axes)
     if ffn_csr is not None or collect_drs_scores:
         _refuse_serving_features(
             cfg, "group-CSR decode / DRS score collection")
@@ -197,11 +245,13 @@ def make_slot_cache(cfg: ModelConfig, max_seq: int, dtype=None,
     return make_cache(cfg, 1, max_seq, dtype, device=device)
 
 
-def prefill_slot(model, dsg, cfg: ModelConfig, tokens, lane_cache):
+def prefill_slot(model, dsg, cfg: ModelConfig, tokens, lane_cache,
+                 mesh=None, batch_axes=None):
     """Deprecated: prefill one prompt lane, tokens (1, P) -> (last_logits
     (1, V), the filled 1-lane cache); ``prefill`` with a {"tokens": ...}
     batch."""
-    return prefill(model, dsg, cfg, {"tokens": tokens}, lane_cache)
+    return prefill(model, dsg, cfg, {"tokens": tokens}, lane_cache,
+                   mesh=mesh, batch_axes=batch_axes)
 
 
 def merge_slot_cache(cache, lane_cache, slot):

@@ -13,6 +13,14 @@ wo (H, D, d).  Two cache kinds reach `self_attention`:
 
 The encoder-decoder family adds `cross_attention` over encoder-memory K/V
 (`memory_kv`, computed once at prefill): no RoPE, f32 scores.
+
+Inside a parallel context on a mesh with a 'model' axis, `self_attention`
+places its activations as the reference's sharding constraints do
+(`parallel.context.constrain`): decode over a dense cache is split-KV
+(the keys sequence-sharded over 'model'), "head" mode shards q and K/V by
+head, "seq" mode shards q by sequence and gathers K/V.  A dense cache
+laid out as a DTensor sequence-sharded over 'model' is written in place,
+each rank writing the rows that fall in its shard.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.sharding import is_dtensor
 
 NEG = -1e30
 
@@ -167,7 +177,7 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
                    cache_kv_pos: Optional[torch.Tensor] = None,
                    page_table: Optional[torch.Tensor] = None,
                    live_pages: Optional[int] = None,
-                   paged_kernel: str = "auto",
+                   paged_kernel: str = "auto", shard: str = "auto",
                    bf16_scores: bool = False):
     """Self-attention over x (B, S, d) -> (out, cache).
 
@@ -186,6 +196,8 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     gather for CPU tensors) writes the new row into the pools in place and
     attends over each lane's positions <= its depth within the leading
     `live_pages` pages.
+    `shard` picks the sharded layout inside a parallel context ("auto":
+    "head" when the heads divide the model axis, else "seq").
     """
     s = x.shape[1]
     q = _proj(x, p.wq)
@@ -213,8 +225,8 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         t = cache["k"].shape[1]
         rows = (torch.as_tensor(cache_pos, device=x.device).long()
                 .clamp(0, t - s) + torch.arange(s, device=x.device))
-        cache["k"][:, rows] = k_new.to(cache["k"].dtype)
-        cache["v"][:, rows] = v_new.to(cache["v"].dtype)
+        cache["k"][:, rows] = _like(cache["k"], k_new)
+        cache["v"][:, rows] = _like(cache["v"], v_new)
         k, v, kv_pos = cache["k"], cache["v"], cache_kv_pos
     elif torch.is_tensor(cache_pos):
         # per-lane dense decode: lane i writes its token at its own
@@ -227,16 +239,15 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
             raise NotImplementedError(
                 "the dense cache takes per-lane single-token decode or a "
                 "scalar write position")
-        lanes = torch.arange(x.shape[0], device=x.device)
         pos = cache_pos.long().clamp(0, cache["k"].shape[1] - 1)
-        cache["k"][lanes, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][lanes, pos] = v_new[:, 0].to(cache["v"].dtype)
+        _write_lanes(cache["k"], k_new[:, 0], pos)
+        _write_lanes(cache["v"], v_new[:, 0], pos)
         k, v = cache["k"], cache["v"]
         kv_pos = torch.arange(k.shape[1], device=x.device)
     else:
         end = cache_pos + s
-        cache["k"][:, cache_pos:end] = k_new.to(cache["k"].dtype)
-        cache["v"][:, cache_pos:end] = v_new.to(cache["v"].dtype)
+        cache["k"][:, cache_pos:end] = _like(cache["k"], k_new)
+        cache["v"][:, cache_pos:end] = _like(cache["v"], v_new)
         k, v = cache["k"][:, :end], cache["v"][:, :end]
         kv_pos = torch.arange(end, device=x.device)
 
@@ -245,33 +256,143 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     # S * Smax exceeds CHUNK_THRESHOLD: the same switch, on the same keys
     # (per-lane decode, q_pos 2-D, is one token and never needs it)
     t_ref = k.shape[1] if cache is None else cache["k"].shape[1]
-    if s * t_ref > CHUNK_THRESHOLD and q_pos.ndim == 1:
-        if cache is not None:
-            k, v = cache["k"], cache["v"]
-            kv_pos = torch.arange(k.shape[1], device=x.device)
-        o = attend_chunked(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads),
-                           q_pos, kv_pos, causal, window)
+    chunked = s * t_ref > CHUNK_THRESHOLD and q_pos.ndim == 1
+    if chunked and cache is not None:
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+    kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
+
+    # the reference's sharding constraints
+    mode = pctx.resolve_attn_shard(shard, n_heads)
+    ba = pctx.batch_axes()
+    q_spec = None
+    if mode != "none":
+        if cache is not None and s == 1:
+            # split-KV decode: the keys sequence-sharded over 'model'
+            q = pctx.constrain(q, ba, None, None, None)
+            kf = pctx.constrain(kf, ba, "model", None, None)
+            vf = pctx.constrain(vf, ba, "model", None, None)
+        elif mode == "head":
+            q_spec = (ba, None, "model", None)
+            q = pctx.constrain(q, *q_spec)
+            kf = pctx.constrain(kf, ba, None, "model", None)
+            vf = pctx.constrain(vf, ba, None, "model", None)
+        else:   # seq parallel: queries sharded over sequence, K/V gathered
+            q_spec = (ba, "model", None, None)
+            q = pctx.constrain(q, *q_spec)
+            kf = pctx.constrain(kf, ba, None, None, None)
+            vf = pctx.constrain(vf, ba, None, None, None)
+
+    if q_spec is not None and is_dtensor(q):
+        o = _attend_sharded(q, kf, vf, q_pos, kv_pos, causal, window,
+                            bf16_scores, chunked, q_spec, mode)
+    elif chunked:
+        o = attend_chunked(q, kf, vf, q_pos, kv_pos, causal, window)
     else:
-        o = attend_direct(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads),
-                          q_pos, kv_pos, causal, window,
+        o = attend_direct(q, kf, vf, q_pos, kv_pos, causal, window,
                           bf16_scores=bf16_scores)
     out = _out(o, p.wo)
     if cache is None:
         return out, {"k": k_new, "v": v_new}
+    if mode != "none":
+        return out, {"k": pctx.constrain(cache["k"], ba, "model", None, None),
+                     "v": pctx.constrain(cache["v"], ba, "model", None, None)}
     return out, cache
+
+
+def _attend_sharded(q, kf, vf, q_pos, kv_pos, causal: bool, window: int,
+                    bf16_scores: bool, chunked: bool, q_spec: tuple,
+                    mode: str):
+    """The attention core of head or seq parallel attention as a
+    shard_map over the parallel context's mesh: each rank attends its own
+    heads (head mode), or its own query rows over all keys (seq mode), in
+    plain tensors, so no op has to carry a head- or row-sharded layout
+    through its reshapes.  Seq mode gathers the rows over 'model'
+    afterwards.  q_pos (S,) and kv_pos (T,) are the global positions."""
+    from repro_torch.parallel.collectives import axis_index, shard_map
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    kv_spec = q_spec if mode == "head" else (q_spec[0], None, None, None)
+
+    def body(q_l, k_l, v_l):
+        qp = q_pos
+        if mode == "seq":       # this rank's rows, cut as DTensor cuts them
+            rows = -(-q_pos.shape[-1] // ctx.n_model)
+            start = axis_index("model", ctx.mesh) * rows
+            qp = q_pos[..., start:start + q_l.shape[1]]
+        if chunked:
+            return attend_chunked(q_l, k_l, v_l, qp, kv_pos, causal, window)
+        return attend_direct(q_l, k_l, v_l, qp, kv_pos, causal, window,
+                             bf16_scores=bf16_scores)
+
+    o = shard_map(body, ctx.mesh, (P(*q_spec), P(*kv_spec), P(*kv_spec)),
+                  P(*q_spec))(q, kf, vf)
+    if mode == "seq":
+        o = pctx.constrain(o, q_spec[0], None, None, None)
+    return o
+
+
+def _like(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """`new` in `buf`'s dtype, gathered whole when `buf` is a plain
+    tensor and `new` a DTensor (a replicated cache of a sharded model)."""
+    if is_dtensor(new) and not is_dtensor(buf):
+        new = new.full_tensor()
+    return new.to(buf.dtype)
+
+
+def _write_lanes(buf: torch.Tensor, rows: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """buf[b, pos[b]] = rows[b] for every lane b, in place.  buf (B, T,
+    ...) may be a DTensor sharded over the batch (dim 0) and over the
+    sequence (dim 1, split-KV decode): each rank then writes the lanes it
+    holds whose position falls in its rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(buf, DTensor):
+        lanes = torch.arange(buf.shape[0], device=buf.device)
+        buf[lanes, pos] = _like(buf, rows)
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.parallel.sharding import distribute, P
+    mesh, pl = buf.device_mesh, buf.placements
+    shape, off = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
+    lane_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in pl]
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = distribute(t, mesh, P())
+        return t.redistribute(mesh, lane_pl).to_local()
+
+    rows_l, pos_l = local(rows), local(pos)
+    buf_l = buf.to_local()
+    p = pos_l.long() - off[1]
+    inside = (p >= 0) & (p < shape[1])
+    p = p.clamp(0, shape[1] - 1)
+    lanes = torch.arange(buf_l.shape[0], device=buf_l.device)
+    keep = buf_l[lanes, p]
+    mask = inside.reshape((-1,) + (1,) * (keep.ndim - 1))
+    buf_l[lanes, p] = torch.where(mask, rows_l.to(buf_l.dtype), keep)
 
 
 def cross_attention(p: Attention, x: torch.Tensor, mem_k: torch.Tensor,
                     mem_v: torch.Tensor, *, n_heads: int,
-                    q_pos: torch.Tensor) -> torch.Tensor:
+                    q_pos: torch.Tensor, shard: str = "auto") -> torch.Tensor:
     """Decoder cross-attention of x (B, S, d) over precomputed encoder K/V
     (B, T, Kv, D): no RoPE, every memory row visible, f32 scores (the
-    reference passes no bf16_scores), chunked above CHUNK_THRESHOLD."""
+    reference passes no bf16_scores), chunked above CHUNK_THRESHOLD.  In
+    head mode on a mesh (`shard`, as `self_attention`'s) the weights are
+    head-sharded, so each rank attends its own heads."""
     q = _proj(x, p.wq)
     kf = repeat_kv(mem_k, n_heads)
     vf = repeat_kv(mem_v, n_heads)
     kv_pos = torch.arange(kf.shape[1], device=x.device)
-    if x.shape[1] * kf.shape[1] > CHUNK_THRESHOLD:
+    chunked = x.shape[1] * kf.shape[1] > CHUNK_THRESHOLD
+    if pctx.resolve_attn_shard(shard, n_heads) == "head" and is_dtensor(q):
+        o = _attend_sharded(q, kf, vf, q_pos, kv_pos, False, 0, False,
+                            chunked, (pctx.batch_axes(), None, "model", None),
+                            "head")
+    elif chunked:
         o = attend_chunked(q, kf, vf, q_pos, kv_pos, False, 0)
     else:
         o = attend_direct(q, kf, vf, q_pos, kv_pos, False, 0)

@@ -37,7 +37,8 @@ from repro_torch.core import dsg_linear as dl
 from repro_torch.core import projection
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import embed_init, norm_apply, norm_init
-from repro_torch.models.transformer import cross_entropy, torch_dtype
+from repro_torch.models.transformer import (embed_tokens,
+                                           sharded_cross_entropy, torch_dtype)
 
 
 class EncLayer(nn.Module):
@@ -138,7 +139,8 @@ def _enc_layer(layer: EncLayer, x, cfg: ModelConfig, pos, r, fw_l):
     h = norm_apply(cfg.norm, layer.ln_attn, x)
     a, _ = attn.self_attention(layer.attn, h, n_heads=cfg.n_heads,
                                n_kv=cfg.n_kv, rope_theta=cfg.rope_theta,
-                               q_pos=pos, causal=False, window=cfg.window)
+                               q_pos=pos, causal=False, window=cfg.window,
+                               shard=cfg.attn_shard)
     x = x + a
     h = norm_apply(cfg.norm, layer.ln_ffn, x)
     return x + _ffn(layer.ffn, r, fw_l, h, cfg)
@@ -165,11 +167,12 @@ def _dec_layer(layer: DecLayer, x, cfg: ModelConfig, q_pos, cache_l, pos0,
                                n_kv=cfg.n_kv, rope_theta=cfg.rope_theta,
                                q_pos=q_pos, causal=True, window=0,
                                cache=cache_l, cache_pos=pos0,
-                               cache_kv_pos=kv_pos)
+                               cache_kv_pos=kv_pos, shard=cfg.attn_shard)
     x = x + a
     h = norm_apply(cfg.norm, layer.ln_cross, x)
     x = x + attn.cross_attention(layer.cross, h, mem_k, mem_v,
-                                 n_heads=cfg.n_heads, q_pos=q_pos)
+                                 n_heads=cfg.n_heads, q_pos=q_pos,
+                                 shard=cfg.attn_shard)
     h = norm_apply(cfg.norm, layer.ln_ffn, x)
     return x + _ffn(layer.ffn, r, fw_l, h, cfg)
 
@@ -192,7 +195,7 @@ def decode(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
                 "the batch, as the reference does")
         pos0 = int(pos0)
     r = dsg["r"] if dsg else None
-    x = model.tok_embed.to(torch_dtype(cfg))[tokens]
+    x = embed_tokens(model.tok_embed.to(torch_dtype(cfg)), tokens)
     q_pos = pos0 + torch.arange(x.shape[1], device=x.device)
     remat = _remat(cfg, model, cache)
     kv_pos = (None if cache is None
@@ -220,13 +223,15 @@ def build_memory_kv(model: EncDecModel, enc_states: torch.Tensor) -> dict:
 
 
 def train_loss(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
-               batch: dict) -> torch.Tensor:
+               batch: dict, mesh=None, batch_axes=None) -> torch.Tensor:
     """Next-token loss of batch {'frames' (B, S, d), 'tokens', 'labels'
-    (B, S // dec_ratio)}."""
+    (B, S // dec_ratio)}.  `mesh` and `batch_axes` are the reference's
+    arguments, which its loss does not read either: the sharded run
+    takes its layout from the parallel context."""
     enc = encode(model, dsg, cfg, batch["frames"])
     logits, _ = decode(model, dsg, cfg, batch["tokens"],
                        build_memory_kv(model, enc))
-    return cross_entropy(logits, batch["labels"])
+    return sharded_cross_entropy(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_dec: int,

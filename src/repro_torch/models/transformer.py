@@ -17,6 +17,14 @@ model it owns (`set_trainable`).  The serving entry points (`prefill`,
 captured CUDA graph records, no autograd.  Training calls `forward` with
 no cache; with cfg.remat each layer is then recomputed in the backward
 (torch.utils.checkpoint), as the reference's jax.checkpoint does.
+
+Sharded: with the weights laid out as DTensors (`parallel.sharding.
+distribute_model`), the verbs take the reference's `mesh` and
+`batch_axes` and run under `parallel.context.use_mesh(mesh)`; DTensor
+carries the layout through the ops, the attention places its activations
+as the reference's constraints do, a MoE runs its experts in parallel
+over 'model', and a gather_shared FFN selects per 'model' shard.  Run a
+backward under the same context (remat recomputes layers there).
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ from repro_torch.core import projection
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import RMSNorm, embed_init, norm_init
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -149,6 +159,38 @@ def refresh_dsg(dsg: Optional[dict], model: Transformer,
         return out
 
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens].  A DTensor table is looked up in a shard_map over the
+    parallel context's mesh, in plain tensors: a vocab-sharded one as the
+    vocab-parallel embedding does it (each 'model' shard gives the rows of
+    its own vocabulary range, zeros elsewhere, summed over 'model'), so no
+    DTensor index op (and its scatter-add backward) runs."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Shard
+    from repro_torch.parallel.collectives import axis_index, psum, shard_map
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    by_vocab = any(isinstance(p, Shard) and p.dim == 0
+                   for p in table.placements)
+
+    def body(t_l, ids):
+        if not by_vocab:
+            return t_l[ids]
+        rows = t_l.shape[0]
+        local = ids - axis_index("model", ctx.mesh) * rows
+        inside = (local >= 0) & (local < rows)
+        out = torch.where(inside[..., None], t_l[local.clamp(0, rows - 1)],
+                          0.0)
+        return psum(out, "model", ctx.mesh)
+
+    ba = ctx.ax.batch
+    nd = (None,) * (tokens.ndim - 1)
+    return shard_map(body, ctx.mesh,
+                     (P("model", None) if by_vocab else P(), P(ba, *nd)),
+                     P(ba, *nd, None))(table, tokens)
+
+
 def _layer_dsg(dsg: Optional[dict], l: int) -> Optional[dict]:
     """Layer l's slice of the per-layer DSG leaves (R stays shared)."""
     if dsg is None:
@@ -157,7 +199,7 @@ def _layer_dsg(dsg: Optional[dict], l: int) -> Optional[dict]:
 
 
 def _ffn_apply(blk: Block, h, cfg: ModelConfig, r, dsg_l, csr_l,
-               aux_kind):
+               aux_kind, mesh=None, batch_axes=None):
     """FFN or MoE with DSG; returns (y, aux or None).  csr_l: this layer's
     group-CSR selection (idx (B, K), counts (B,)) from the serving DSG
     runtime, which targets the SwiGLU FFN only."""
@@ -178,7 +220,8 @@ def _ffn_apply(blk: Block, h, cfg: ModelConfig, r, dsg_l, csr_l,
         return moe_mod.moe_ffn(
             blk.moe, h, n_experts=cfg.moe_experts, top_k=cfg.moe_topk,
             capacity_factor=cfg.moe_capacity_factor, dsg=cfg.dsg,
-            dsg_state=st, aux_kind=aux_kind)
+            dsg_state=st, mesh=mesh, batch_axes=batch_axes,
+            aux_kind=aux_kind)
     st = {"r": r, "fw": dsg_l["fw"]} if dsg_l is not None else None
     return dl.swiglu_ffn(blk.ffn, h, st, cfg.dsg), None
 
@@ -197,19 +240,27 @@ def _drs_scores(h: torch.Tensor, r: torch.Tensor, fw: torch.Tensor,
 
 def _block(blk: Block, x, cfg: ModelConfig, q_pos, cache_l, cache_pos,
            page_table, live_pages, r, dsg_l, csr_l, collect_scores: bool,
-           aux_kind=None):
+           aux_kind=None, mesh=None, batch_axes=None):
+    if cfg.seq_sharded_residual:
+        # Megatron-SP: the residual stream (the remat stash) seq-sharded
+        x = pctx.constrain(x, pctx.batch_axes(), "model", None)
     h = blk.ln_attn(x)
     a, _ = attn.self_attention(
         blk.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         rope_theta=cfg.rope_theta, q_pos=q_pos, causal=True,
         window=cfg.window, cache=cache_l, cache_pos=cache_pos,
         page_table=page_table, live_pages=live_pages,
-        paged_kernel=cfg.paged_attn_kernel, bf16_scores=cfg.attn_bf16_scores)
+        paged_kernel=cfg.paged_attn_kernel, shard=cfg.attn_shard,
+        bf16_scores=cfg.attn_bf16_scores)
     x = x + a
     h = blk.ln_ffn(x)
     scores = _drs_scores(h, r, dsg_l["fw"], cfg) if collect_scores else None
-    f, aux = _ffn_apply(blk, h, cfg, r, dsg_l, csr_l, aux_kind)
-    return x + f, scores, aux
+    f, aux = _ffn_apply(blk, h, cfg, r, dsg_l, csr_l, aux_kind, mesh,
+                        batch_axes)
+    x = x + f
+    if cfg.seq_sharded_residual:
+        x = pctx.constrain(x, pctx.batch_axes(), "model", None)
+    return x, scores, aux
 
 
 def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
@@ -218,7 +269,8 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
             cache: Optional[dict] = None, pos0=0,
             live_pages: Optional[int] = None, last_only: bool = False,
             ffn_csr: Optional[dict] = None,
-            collect_drs_scores: bool = False, with_aux: bool = False):
+            collect_drs_scores: bool = False, with_aux: bool = False,
+            mesh=None, batch_axes=None):
     """tokens (B, S) -> (logits, cache) [+ DRS scores (L, B, S, G) when
     collect_drs_scores] [+ the auxiliary loss summed over layers, a 0-dim
     f32 tensor, when with_aux].
@@ -232,6 +284,9 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
     returned.  ffn_csr: per-layer group-CSR selections {'idx': (L, B, K),
     'counts': (L, B)}; the FFN then contracts only the listed groups.
     live_pages bounds the paged walk (None walks the whole table).
+    mesh / batch_axes: the reference's arguments for a sharded run (the
+    MoE's expert parallelism reads them); the caller installs the mesh's
+    parallel context.
     """
     _check_family(cfg)
     page_table = None
@@ -243,7 +298,7 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
     elif cache is not None:
         layer_caches = [{"k": cache["k"][l], "v": cache["v"][l]}
                         for l in range(cfg.n_layers)]
-    x = model.embed[tokens]
+    x = embed_tokens(model.embed, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
@@ -265,7 +320,7 @@ def forward(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
                  if ffn_csr is not None else None)
         args = (blk, x, cfg, q_pos, layer_caches[l], pos0, page_table,
                 live_pages, r, _layer_dsg(dsg, l), csr_l, collect_drs_scores,
-                aux_kind)
+                aux_kind, mesh, batch_axes)
         if remat:
             x, scores, aux_l = checkpoint(_block, *args, use_reentrant=False)
         else:
@@ -312,29 +367,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return ce.mean()
 
 
+def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """`cross_entropy` inside a parallel context: vocab-sharded logits are
+    gathered over 'model' first (DTensor has no gather along a sharded
+    dim), the batch stays sharded."""
+    logits = pctx.constrain(logits, pctx.batch_axes(),
+                            *([None] * (logits.ndim - 1)))
+    return cross_entropy(logits, labels)
+
+
 def train_loss(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,
-               batch: dict) -> torch.Tensor:
+               batch: dict, mesh=None, batch_axes=None) -> torch.Tensor:
     """Next-token loss of batch {'tokens', 'labels'} (B, S) (with
     'prefix_embeds' (B, P, d) for a VLM, whose P prefix positions are cut
     from the logits), plus 0.01 x the auxiliary loss summed over layers
     (the MoE's load balance; zero for the other families)."""
     prefix = batch.get("prefix_embeds")
     logits, _, aux = forward(model, dsg, cfg, batch["tokens"],
-                             prefix_embeds=prefix, with_aux=True)
+                             prefix_embeds=prefix, with_aux=True, mesh=mesh,
+                             batch_axes=batch_axes)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
-    return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+    return sharded_cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 
 @torch.no_grad()
 def prefill(model, dsg, cfg: ModelConfig, tokens, cache,
-            prefix_embeds=None, collect_drs_scores: bool = False):
+            prefix_embeds=None, collect_drs_scores: bool = False,
+            mesh=None, batch_axes=None):
     """Prefill `cache` with the prompt (after `prefix_embeds`, when
     given); returns (last_logits (B, V), cache) [+ the last token's DRS
     scores (L, B, G)]."""
     out = forward(model, dsg, cfg, tokens, prefix_embeds=prefix_embeds,
                   cache=cache, pos0=0, last_only=True,
-                  collect_drs_scores=collect_drs_scores)
+                  collect_drs_scores=collect_drs_scores, mesh=mesh,
+                  batch_axes=batch_axes)
     if collect_drs_scores:
         logits, cache, scores = out
         return logits[:, -1], cache, scores[:, :, -1]
@@ -345,12 +413,14 @@ def prefill(model, dsg, cfg: ModelConfig, tokens, cache,
 @torch.no_grad()
 def decode_step(model, dsg, cfg: ModelConfig, token, cache, pos,
                 live_pages=None, ffn_csr=None,
-                collect_drs_scores: bool = False):
+                collect_drs_scores: bool = False, mesh=None,
+                batch_axes=None):
     """One decode step: token (B, 1), pos (B,) int32 -> (logits (B, V),
     cache) [+ DRS scores (L, B, G)]."""
     out = forward(model, dsg, cfg, token, cache=cache, pos0=pos,
                   live_pages=live_pages, ffn_csr=ffn_csr,
-                  collect_drs_scores=collect_drs_scores)
+                  collect_drs_scores=collect_drs_scores, mesh=mesh,
+                  batch_axes=batch_axes)
     if collect_drs_scores:
         logits, cache, scores = out
         return logits[:, -1], cache, scores[:, :, 0]

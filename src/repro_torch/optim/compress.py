@@ -6,6 +6,8 @@ magnitude.  The quantisation error is kept in a feedback buffer and added
 to the next step's gradient, so the decoded sum telescopes to the true
 one.  The wire format is modelled at 2 bits an element plus one f32
 scale.  Trees are dicts of tensors keyed by parameter name.
+`compressed_psum` is the all-reduce of the decoded values over a named
+mesh axis, for the body of a `parallel.collectives.shard_map`.
 """
 from __future__ import annotations
 
@@ -14,14 +16,25 @@ from typing import Tuple
 import torch
 
 
+def ternarize_group(gs: list, threshold_frac: float = 0.7
+                    ) -> Tuple[list, torch.Tensor]:
+    """Tensors quantised as one, without concatenating them: one mean |g|
+    and one scale over all their entries -> (f32 codes in {-1, 0, +1} for
+    each tensor, f32 scale)."""
+    g32 = [g.float() for g in gs]
+    a = [x.abs() for x in g32]
+    mean = sum(x.sum() for x in a) / sum(x.numel() for x in a)
+    codes = [torch.sign(x) * (y > threshold_frac * mean)
+             for x, y in zip(g32, a)]
+    kept = torch.clamp(sum(c.abs().sum() for c in codes), min=1.0)
+    return codes, sum((y * c.abs()).sum() for y, c in zip(a, codes)) / kept
+
+
 def ternarize(g: torch.Tensor, threshold_frac: float = 0.7
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """g -> (f32 codes in {-1, 0, +1}, f32 scale)."""
-    g32 = g.float()
-    a = g32.abs()
-    codes = torch.sign(g32) * (a > threshold_frac * a.mean())
-    kept = torch.clamp(codes.abs().sum(), min=1.0)
-    return codes, (a * codes.abs()).sum() / kept
+    (codes,), scale = ternarize_group([g], threshold_frac)
+    return codes, scale
 
 
 def decode(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -36,15 +49,37 @@ def compress_with_feedback(g: torch.Tensor, err: torch.Tensor,
     return dec, corrected - dec
 
 
+def compressed_psum(g: torch.Tensor, axis: str, err: torch.Tensor,
+                    threshold_frac: float = 0.7, mesh=None):
+    """Ternary-compressed all-reduce over `axis` (inside a shard_map body,
+    on this rank's local tensors): each rank's decoded codes, summed over
+    the axis.  On the wire that is 2-bit codes plus one scale a rank; the
+    sum of decoded values is what each rank reconstructs.  Returns
+    (reduced, new_err)."""
+    from repro_torch.parallel.collectives import psum
+    dec, new_err = compress_with_feedback(g, err, threshold_frac)
+    return psum(dec, axis, mesh), new_err
+
+
 def tree_compress_with_feedback(grads: dict, errs: dict,
-                                threshold_frac: float = 0.7):
+                                threshold_frac: float = 0.7, group=None):
     """Every leaf through `compress_with_feedback`; the decoded gradients
-    keep their leaf's dtype."""
+    keep their leaf's dtype.  `group(name)` -> key quantises the leaves
+    that share a key as one (`ternarize_group`): the trainer groups a
+    model's per-block leaves by the reference's stacked leaf
+    (`bridge.reference_path`), which the reference quantises whole.  By
+    default each leaf is its own group."""
+    keys = {}
+    for name in grads:
+        keys.setdefault(group(name) if group else name, []).append(name)
     dec, new_errs = {}, {}
-    for name, g in grads.items():
-        d, new_errs[name] = compress_with_feedback(g, errs[name],
-                                                   threshold_frac)
-        dec[name] = d.to(g.dtype)
+    for names in keys.values():
+        corrected = [grads[n].float() + errs[n] for n in names]
+        codes, scale = ternarize_group(corrected, threshold_frac)
+        for n, c, k in zip(names, corrected, codes):
+            d = decode(k, scale)
+            new_errs[n] = c - d
+            dec[n] = d.to(grads[n].dtype)
     return dec, new_errs
 
 

@@ -1,3 +1,3 @@
-"""Sharding rules and the parallel context: specs as DeviceMesh/DTensor
-placements (ROADMAP.md queue 1 item 9a).  The model itself runs sharded
-over a multi-rank mesh only from item 9b on."""
+"""Sharding rules, the parallel context, the shard_map bodies' collectives
+and the pipeline: specs as DeviceMesh/DTensor placements (ROADMAP.md
+queue 1 items 9a and 9b)."""

@@ -1,13 +1,19 @@
 """The parallel context (the port of `repro.parallel.context`).
 
 A launcher (or the dry run) installs a mesh around the step; model code
-asks the context how to place its activations.  Outside a context, or on
-a 1-device mesh, every helper is a no-op.  No model code calls
-`constrain` yet: the model runs sharded from ROADMAP.md queue 1 item 9b.
+asks the context how to place its activations (`constrain`, called by the
+attention layers and the loss) and which FFN path to take.  Outside a
+context, or on a 1-device mesh, every helper is a no-op.
+
+Inside a context on a mesh, DTensor meets plain tensors (positions,
+masks, constants the model makes on the fly) as replicated values
+(`implicit_replication`), so the same model code runs on DTensor weights.
+A backward that recomputes layers (remat) runs that code again: run it
+under the same context.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple, Optional
 
 from repro_torch.parallel.sharding import (P, Axes, axes_for_mesh,
@@ -34,15 +40,20 @@ def use_mesh(mesh, batch_shardable: bool = True):
     which cannot divide the data axes: a model-parallel-only workload)."""
     global _CTX
     prev = _CTX
+    replicate = nullcontext()
     if mesh is not None:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
         ax = axes_for_mesh(mesh)
         if not batch_shardable:
             ax = Axes(batch=None, model=ax.model)
         _CTX = ParallelCtx(mesh, ax, model_shards(mesh))
+        replicate = implicit_replication()
     else:
         _CTX = None
     try:
-        yield _CTX
+        with replicate:
+            yield _CTX
     finally:
         _CTX = prev
 

@@ -14,6 +14,9 @@ the spec leaves out are replicated.  `placements` turns a spec into the
 DTensor placements of a mesh, and `distribute` lays a tensor out by it.
 All spec builders take an `Axes`, so the same rules serve either
 production mesh and a 1 x 1 mesh, where every placement is trivial.
+`distribute_model` lays a module's parameters out in place (the sharded
+model then runs through DTensor), `distribute_tree` a dict of tensors
+(DSG state, optimizer state), and `full_tree` gathers one back.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ def replica_mesh(n_replicas: int, device_type: str = "cuda"):
     """1-axis `replicas` mesh over the first `n_replicas` ranks of the
     default process group, for data-parallel serving replica groups.  The
     sharded replica executor does not take a mesh yet (ROADMAP.md queue 1
-    item 9b); this builds one."""
+    item 9c); this builds one."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch import distributed as dist
     have = dist.get_world_size()
@@ -206,3 +209,43 @@ def distribute(t: torch.Tensor, mesh, spec: P):
         return DTensor.from_local(local, mesh, pl, run_check=False,
                                   shape=t.shape, stride=t.stride())
     return distribute_tensor(t, mesh, pl)
+
+
+def distribute_model(model, mesh, specs: dict):
+    """Every parameter of `model` as a DTensor laid out on `mesh` by its
+    spec ({name: P}, `models.specs.param_specs`), in place: each one is
+    replaced by a Parameter of the DTensor, keeping requires_grad, its
+    value scattered from rank 0's copy.  Returns `model`."""
+    from torch import nn
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, leaf, nn.Parameter(
+            distribute(p.detach(), mesh, specs[name]),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def distribute_tree(tree, mesh, specs):
+    """A nested dict of tensors laid out by the same-shaped dict of specs;
+    None leaves, and leaves that are not tensors (a step count), stay."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    if not torch.is_tensor(tree):
+        return tree
+    return distribute(tree, mesh, specs)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def full_tree(tree):
+    """A (nested dict of) tensor(s) with every DTensor gathered whole: a
+    collective over its mesh, which every rank of it takes part in."""
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if is_dtensor(tree) else tree

@@ -538,7 +538,7 @@ class ShardedExecutor(ReplicaExecutor):
 
     Engines with the DSG serving runtime are refused, as in the reference
     (their CSR and refresh variants dispatch inside `ServingEngine.step`),
-    and so is `mesh=`: a replica mesh is ROADMAP.md queue 1 item 9b."""
+    and so is `mesh=`: a replica mesh is ROADMAP.md queue 1 item 9c."""
 
     name = "sharded"
     lockstep = True
@@ -555,7 +555,7 @@ class ShardedExecutor(ReplicaExecutor):
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded executor runs its replica group on one device; "
-                "a replica mesh is not ported (ROADMAP.md queue 1 item 9b)")
+                "a replica mesh is not ported (ROADMAP.md queue 1 item 9c)")
         self.chunk = 1
         self.graphs = None
         # begin-phase failures deferred past the group step (one raise a
@@ -695,7 +695,7 @@ def get_executor(mode, engines, *, mesh=None) -> ReplicaExecutor:
     if mesh is not None:
         raise NotImplementedError(
             "replica meshes are not ported: every replica runs on its "
-            "model's device (ROADMAP.md queue 1 item 9b)")
+            "model's device (ROADMAP.md queue 1 item 9c)")
     if mode == "sequential":
         return SequentialExecutor(engines)
     if mode == "threaded":

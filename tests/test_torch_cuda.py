@@ -1365,3 +1365,261 @@ def test_whisper_train_loss_card_matches_cpu_on_card(cuda, dsg_mode):
     for got, want in zip(runs[0][1], runs[1][1]):
         tol = 1e-5 * max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+# -- the model's parallel parts on two gloo ranks of the card ----------------
+#
+# The shard_map bodies on a (data 1, model 2) mesh of two ranks on cuda:0,
+# against the same ranks' run on a CPU mesh of the same gloo group, in f32
+# (TF32 off): the sharded gather FFN forward and backward
+# (`swiglu_dsg_gather_sharded`), the MoE's routed experts under expert
+# parallelism (`moe._routed_ep`, DSG on and off), `pipeline_forward` over
+# 'pipe' 2 and `compressed_psum`.  The whole smoke model's sharded
+# train_loss has no twin here: DTensor's all_gather, which its layouts
+# need, segfaults under gloo on CUDA tensors (PERF.md §7); it is held on
+# gloo CPU ranks by tests/test_torch_sharded_model.py.
+
+MESH_TWINS = r'''
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch_mesh_harness import dump, init_ranks
+
+rank, n, tmp = int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])
+init_ranks(rank, n, tmp)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate
+from repro_torch import configs
+from repro_torch.core import dsg_linear as dl
+from repro_torch.core.projection import make_projection
+from repro_torch.models import moe
+from repro_torch.optim.compress import compressed_psum
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.collectives import shard_map
+from repro_torch.parallel.pipeline import pipeline_forward
+from repro_torch.parallel.sharding import P, distribute
+try:
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = DeviceMesh(dev, torch.arange(2).reshape(1, 2),
+                          mesh_dim_names=("data", "model"))
+        gen = torch.Generator().manual_seed(0)
+        cfg = configs.get_smoke_config("internlm2-1.8b")
+        d, f = cfg.d_model, cfg.d_ff
+        rnd = lambda *s: torch.randn(s, generator=gen)
+        w = {"w_gate": rnd(d, f) / d ** 0.5, "w_up": rnd(d, f) / d ** 0.5,
+             "w_down": rnd(f, d) / f ** 0.5}
+        r = make_projection(dl.proj_dim(d, f, cfg.dsg), d, generator=gen)
+        x, gy = rnd(2, 8, d), rnd(2, 8, d)
+        specs = {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+                 "w_down": P("model", None)}
+        wd = {k: distribute(v.to(dev), mesh, specs[k]).requires_grad_(True)
+              for k, v in w.items()}
+        st = {"r": distribute(r.to(dev), mesh, P()),
+              "fw": distribute((r @ w["w_gate"]).to(dev), mesh,
+                               P(None, "model"))}
+        xd = distribute(x.to(dev), mesh, P(("data",), None, None))
+        xd.requires_grad_(True)
+        gyd = distribute(gy.to(dev), mesh, P(("data",), None, None))
+        dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
+        with pctx.use_mesh(mesh):
+            y = dl.swiglu_dsg_gather_sharded(SimpleNamespace(**wd), xd, st,
+                                             dcfg)
+            g = torch.autograd.grad(y, [xd] + list(wd.values()),
+                                    grad_outputs=gyd)
+            dx = g[0].redistribute(mesh, [g[0].placements[0], Replicate()])
+        res = {"ffn_y": y.to_local(), "ffn_dx": dx.to_local(),
+               "ffn_dw": [t.to_local() for t in g[1:]]}
+
+        mcfg = configs.get_smoke_config("deepseek-moe-16b")
+        e, fe = mcfg.moe_experts, mcfg.moe_d_ff
+        mw = dict(w_gate=rnd(e, d, fe) / d ** 0.5, w_up=rnd(e, d, fe) / d ** 0.5,
+                  w_down=rnd(e, fe, d) / fe ** 0.5)
+        mr = make_projection(dl.proj_dim(d, fe, mcfg.dsg), d, generator=gen)
+        fw = torch.matmul(mr, mw["w_gate"])
+        xm = rnd(16, d)
+        logits = xm @ (rnd(d, e) / d ** 0.5)
+        ep = P("model", None, None)
+        pd = SimpleNamespace(**{k: distribute(v.to(dev), mesh, ep)
+                                for k, v in mw.items()})
+        for on in (True, False):
+            dsg = mcfg.dsg if on else mcfg.dsg._replace(enabled=False)
+            with pctx.use_mesh(mesh):
+                ym = moe._routed_ep(
+                    xm.to(dev), logits.to(dev), pd, mesh, ("data",), e,
+                    mcfg.moe_topk, mcfg.moe_capacity_factor,
+                    distribute(fw.to(dev), mesh, ep) if on else None,
+                    mr.to(dev) if on else None, dsg)
+            res[f"moe_{on}"] = ym.to_local()
+
+        pmesh = DeviceMesh(dev, torch.arange(2), mesh_dim_names=("pipe",))
+        stages = {"w": (rnd(2, d, d) / d ** 0.5).to(dev)}
+        res["pipe"] = pipeline_forward(
+            lambda p, h: torch.tanh(h @ p["w"]), stages,
+            rnd(4, 2, d).to(dev), pmesh).to_local()
+        gs = rnd(2, 64).to(dev)
+        run = shard_map(lambda gl, el: compressed_psum(gl, "model", el,
+                                                       mesh=mesh),
+                        mesh, (P("model"), P("model")),
+                        (P("model"), P("model")))
+        red, err = run(gs, torch.zeros_like(gs))
+        res["cpsum"] = (red.to_local(), err.to_local())
+        out[dev] = {k: ([t.cpu() for t in v] if isinstance(v, (list, tuple))
+                        else v.cpu()) for k, v in res.items()}
+    if rank == 0:
+        dump(out, tmp / "torch.pkl")
+finally:
+    dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def mesh_twins(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_harness as mh
+    return mh.run_ranks(tmp_path_factory.mktemp("mesh_twins"), MESH_TWINS, 2)
+
+
+@pytest.mark.parametrize("part", ["ffn_y", "ffn_dx", "ffn_dw", "moe_True",
+                                  "moe_False", "pipe", "cpsum"])
+def test_mesh_parts_on_card_match_cpu_ranks(mesh_twins, part):
+    got, want = mesh_twins["cuda"][part], mesh_twins["cpu"][part]
+    if not isinstance(got, list):
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+
+
+# -- the whole smoke model sharded, under this machine's torch --------------
+#
+# The CPU tests hold the sharded model against the JAX package under the
+# torch they run with; DTensor's sharding rules differ between torch
+# versions (the card machine's refused einsum over head-sharded queries
+# and the index backward of a sharded embedding, ROADMAP.md §3).  So the
+# card's own torch runs the smoke model's sharded train_loss (every
+# gradient taken), prefill and split-KV decode on a (data 2, model 2) mesh
+# of four gloo CPU ranks, against the same model unsharded in the rank.
+# (gloo cannot all_gather CUDA tensors, which the whole model's layouts
+# need: PERF.md §7.)  Cases whose sharded semantics read local rows (MoE
+# capacity and EP thresholds, the per-shard gather) are held finite only.
+
+SHARDED_CASES = {
+    "head": ("internlm2-1.8b", {}, {}, True),
+    "seq": ("internlm2-1.8b", {"attn_shard": "seq"}, {}, True),
+    "bf16": ("internlm2-1.8b", {"dtype": "bfloat16",
+                                "attn_bf16_scores": True}, {}, True),
+    "dsg_off": ("internlm2-1.8b", {}, {"enabled": False}, True),
+    "topk": ("internlm2-1.8b", {}, {"threshold_mode": "topk"}, True),
+    "gather": ("internlm2-1.8b", {},
+               {"mode": "gather_shared", "n_chunks": 2}, False),
+    "moe": ("deepseek-moe-16b", {}, {}, False),
+    "whisper": ("whisper-large-v3", {}, {}, True),
+    "decode": ("internlm2-1.8b", {}, {}, True),
+    "prefill": ("deepseek-moe-16b", {"dtype": "bfloat16"}, {}, False),
+}
+
+SHARDED_RANKS = f"""
+CASES = {SHARDED_CASES!r}
+""" + r'''
+import sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from torch_mesh_harness import dump, init_ranks
+
+rank, n, tmp = int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])
+init_ranks(rank, n, tmp)
+from repro_torch import configs
+from repro_torch.launch.mesh import make_elastic_mesh
+from repro_torch.models import api, specs, transformer
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.sharding import (axes_for_mesh, distribute,
+                                           distribute_model, distribute_tree)
+try:
+    mesh = make_elastic_mesh(4, model=2, device_type="cpu")
+    ax = axes_for_mesh(mesh)
+    out = {}
+    for name, (arch, over, dover, _) in CASES.items():
+        cfg = configs.get_smoke_config(arch).replace(**over)
+        cfg = cfg.replace(dsg=cfg.dsg._replace(**dover))
+        gen = torch.Generator().manual_seed(0)
+        model = api.init_model(cfg, generator=gen, device="cpu")
+        dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+        g2 = torch.Generator().manual_seed(1)
+        if name == "whisper":
+            batch = {"frames": torch.randn(4, 32, cfg.d_model, generator=g2),
+                     "tokens": torch.randint(0, cfg.vocab, (4, 8),
+                                             generator=g2),
+                     "labels": torch.randint(0, cfg.vocab, (4, 8),
+                                             generator=g2)}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16),
+                                             generator=g2),
+                     "labels": torch.randint(0, cfg.vocab, (4, 16),
+                                             generator=g2)}
+        if name in ("decode", "prefill"):
+            cache = api.make_cache(cfg, 4, 32, device="cpu")
+            want, cache = api.prefill(model, dsg, cfg,
+                                      {"tokens": batch["tokens"]}, cache)
+            if name == "decode":
+                tok, pos = batch["tokens"][:, :1], torch.tensor([16, 15, 16,
+                                                                 17])
+                want, _ = api.decode_step(model, dsg, cfg, tok,
+                                          {k: v.clone()
+                                           for k, v in cache.items()}, pos)
+        else:
+            transformer.set_trainable(model)
+            want = api.train_loss(model, dsg, cfg, batch)
+        distribute_model(model, mesh, specs.param_specs(model, cfg, ax, 2))
+        dsg = distribute_tree(dsg, mesh, specs.dsg_specs(dsg, cfg, ax, 2))
+        if name == "decode":
+            cache = distribute_tree(cache, mesh,
+                                    specs.cache_specs(cache, cfg, ax, 2))
+            got, _ = api.decode_step(model, dsg, cfg, tok, cache, pos,
+                                     mesh=mesh, batch_axes=ax.batch)
+        elif name == "prefill":
+            got, _ = api.prefill(model, dsg, cfg, {"tokens": batch["tokens"]},
+                                 api.make_cache(cfg, 4, 32, device="cpu"),
+                                 mesh=mesh, batch_axes=ax.batch)
+        else:
+            bs = specs.input_specs(batch, cfg, ax)
+            db = {k: distribute(v, mesh, bs[k]) for k, v in batch.items()}
+            params = list(model.parameters())
+            with pctx.use_mesh(mesh):
+                got = api.train_loss(model, dsg, cfg, db, mesh=mesh,
+                                     batch_axes=ax.batch)
+                grads = torch.autograd.grad(got, params)
+            assert all(torch.isfinite(g.full_tensor()).all() for g in grads)
+        out[name] = (got.full_tensor().detach().float(),
+                     want.detach().float())
+    if rank == 0:
+        dump(out, tmp / "torch.pkl")
+finally:
+    dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def sharded_under_this_torch(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("runs on the card machine's torch; needs a CUDA device")
+    import torch_mesh_harness as mh
+    return mh.run_ranks(tmp_path_factory.mktemp("sharded_torch"),
+                        SHARDED_RANKS, 4)
+
+
+@pytest.mark.parametrize("case", list(SHARDED_CASES))
+def test_sharded_smoke_model_runs_under_this_torch(sharded_under_this_torch,
+                                                   case):
+    got, want = sharded_under_this_torch[case]
+    assert torch.isfinite(got).all()
+    if SHARDED_CASES[case][3]:
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= (4e-3 if case == "bf16" else 1e-5), rel

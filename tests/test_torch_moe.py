@@ -192,10 +192,19 @@ def test_router_tie_goes_to_the_lower_expert():
 
 
 def test_mesh_is_refused_naming_the_roadmap():
+    """A mesh is no longer refused: expert parallelism is ported (ROADMAP
+    item 9b; held on gloo ranks by tests/test_torch_sharded_model.py).
+    As the reference's gate has it, a mesh whose 'model' axis is 1 runs
+    every expert locally: the same result as no mesh."""
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
     p = _port_moe(_ref_moe(0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        moe.moe_ffn(p, torch.zeros(1, 4, D), n_experts=E, top_k=2,
-                    capacity_factor=1.25, dsg=DSGConfig(), mesh=object())
+    x = torch.from_numpy(_x(1, t=4))
+    kw = dict(n_experts=E, top_k=2, capacity_factor=1.25, dsg=DSGConfig())
+    want, _ = moe.moe_ffn(p, x, **kw)
+    with fake_world(1):
+        got, _ = moe.moe_ffn(p, x, mesh=make_local_mesh(device_type="cpu"),
+                             batch_axes=("data",), **kw)
+    assert torch.equal(got, want)
 
 
 def test_combine_adds_in_ascending_expert_order():

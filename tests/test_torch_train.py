@@ -445,7 +445,8 @@ def test_cli_trains_the_smoke_model_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,says", [
-    (["--production-mesh"], "ROADMAP"), (["--steps", "0"], "--steps"),
+    (["--production-mesh", "--arch", "xlstm-350m"], "ROADMAP"),
+    (["--steps", "0"], "--steps"),
     (["--batch", "0"], "--batch"), (["--arch", "whisper-large-v3"], "ROADMAP.md §3"),
     (["--steps", "x"], "invalid int")])
 def test_cli_rejects_bad_flags(flags, says, capsys):
