@@ -275,7 +275,9 @@ result line):
             memory is freed.  The dry run (meta tensors, on the host CPU)
             of internlm2-1.8b's phase-19 step, batch 8 x seq 256, remat and
             DSG mask mode, one microbatch (the ordinary trainer takes the
-            batch whole), on a 1 x 1 mesh.  (a) The same state on the card
+            batch whole), on a 1 x 1 mesh; its traced peak is the sharded
+            step's on rank 0 (DTensors), which on one device is the
+            unsharded step's.  (a) The same state on the card
             (bf16 weights from a seeded torch.Generator, DSG state, AdamW
             with f32 masters) laid out as DTensors by the port's specs on
             `make_local_mesh()` of a one-rank NCCL group (a FileStore in a
@@ -309,7 +311,11 @@ result line):
             within MESH_E_FACTOR x E, E the unsharded bf16 run's gap to
             the f32 FFN on the groups that run kept (ROADMAP.md §3's bf16
             rule; f32 scores would keep other groups); ms p50 of both, the
-            host time of the collectives from a profiler window.
+            host time of the collectives from a profiler window.  One
+            more call on each rank runs under `launch.comm_analysis`'s
+            counter: its collectives, kind by kind in count and bytes,
+            must equal the dry run's count of the same call traced on
+            meta tensors on rank 0 of a 2-rank fake group.
             (b) deepseek-moe-16b's routed experts of one layer under
             expert parallelism at full width (32 of 64 experts of 2048 x
             1408 a rank, 4 x 128 tokens, bf16), DSG on as the config sets
@@ -352,7 +358,8 @@ imports nothing of JAX or of the `repro` package.
 
 runs, on four cards and nothing else, the whole model sharded with one
 card a rank over NCCL, which phase 27 cannot do on one card (see
-`main_mesh_cards`).
+`main_mesh_cards`); one training step's collectives on each rank must
+equal the dry run's record of that step.
 """
 from __future__ import annotations
 
@@ -379,7 +386,8 @@ WARM_REPS = 30                     # profiled calls before the timed ones:
 CALL_GAP_NS = 3_000_000            # idle device time that ends a call
 PROFILE_TRIES = 5                  # traces device_ms takes to find a clean one:
                                    # a host under load can drop a trace's
-                                   # events or stall a call past CALL_GAP_NS
+                                   # events or stall a call past the gap,
+                                   # so each retry doubles the gap
 # (rtol, atol): in bf16, one ulp of the value (2^-7 relative) plus 4e-3
 # for values near zero; in f32, summation order
 TOL = {"torch.bfloat16": (8e-3, 4e-3), "torch.float32": (1e-4, 1e-4)}
@@ -425,16 +433,18 @@ def device_ms(fn) -> tuple:
     """Device time of one call: the summed durations of the kernels and
     copies it launches, from torch.profiler's device events, median over
     the last TIMING_REPS of WARM_REPS + TIMING_REPS profiled calls.  Each
-    call ends in a synchronize and 5 ms of idle host, so on the device's
-    own clock a call's events form one run, separated from the next by an
-    idle gap of over CALL_GAP_NS.  (The profiler's host and device clocks
+    call ends in a synchronize and CALL_GAP_NS + 2 ms of idle host, so on
+    the device's own clock a call's events form one run, separated from
+    the next by an idle gap of over CALL_GAP_NS.  (The profiler's host and device clocks
     are not aligned closely enough to assign events to host-side ranges,
     and it can miss the events of the first calls after it starts, which
     the warm-up calls absorb.)  A trace is taken only if it split into more
     than TIMING_REPS and at most WARM_REPS + TIMING_REPS runs and every
     timed call has the same number of events: a call that lost events, or
     two calls merged into one run, would not.  Up to PROFILE_TRIES traces
-    are taken; fails if none passes.  Returns (ms, a note: the median
+    are taken, each with twice the last one's gap and pause (a loaded
+    host can stall between a call's own launches past CALL_GAP_NS); fails
+    if none passes.  Returns (ms, a note: the median
     call's span from its first start to its last end, which also holds the
     device's idle gaps between its launches; the runs found; the events of
     each timed call; and the kernel names of the median call and their
@@ -445,13 +455,14 @@ def device_ms(fn) -> tuple:
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(PROFILE_TRIES):
+    for k in range(PROFILE_TRIES):
+        gap = CALL_GAP_NS << k
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(WARM_REPS + TIMING_REPS):
                 fn()
                 torch.cuda.synchronize()
-                time.sleep(0.005)
+                time.sleep(gap / 1e9 + 0.002)
         spans = sorted(
             (e.start_ns(), e.end_ns(), e.name())
             for e in prof.profiler.kineto_results.events()
@@ -459,7 +470,7 @@ def device_ms(fn) -> tuple:
             and not getattr(e, "is_user_annotation", lambda: False)())
         runs, end = [], None
         for s, e, name in spans:
-            if end is None or s - end > CALL_GAP_NS:
+            if end is None or s - end > gap:
                 runs.append([])
             runs[-1].append((s, e, name))
             end = e if end is None else max(end, e)
@@ -3514,12 +3525,8 @@ def mesh_tp(rank, dev, spec) -> dict:
     sharded gather FFN (`swiglu_dsg_gather_sharded`, gather_shared with
     n_chunks 2) forward and backward at full width."""
     import torch
-    from torch.distributed.tensor import Replicate
-    from repro_torch.core import dsg_linear as dl
-    from repro_torch.launch import mesh as lmesh, train
+    from repro_torch.launch import comm_analysis, mesh as lmesh, train
     from repro_torch.optim import adamw
-    from repro_torch.parallel import context as pctx
-    from repro_torch.parallel.sharding import P, distribute
     cfg = mesh_cfg(ARCH, spec)
     mesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
     out = {}
@@ -3544,8 +3551,35 @@ def mesh_tp(rank, dev, spec) -> dict:
     if cuda:
         torch.cuda.empty_cache()
 
-    dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
     w, st, x, gy = ffn_case(cfg, dev, torch.bfloat16, spec["ffn_tokens"])
+    fwd_bwd = tp_ffn_call(cfg, mesh, w, st, x, gy)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    y, dx, grads = fwd_bwd()
+    out.update({"y": y.to_local().cpu(), "dx": dx.to_local().cpu(),
+                "dw": [g.to_local().cpu() for g in grads[1:]]})
+    out["ms_p50"], out["ms"] = host_ms(fwd_bwd)
+    out["profile"] = collective_ms(fwd_bwd)
+    if cuda:
+        out["ffn_peak"] = torch.cuda.max_memory_allocated()
+    # one more call, its collectives counted as the dry run counts them
+    out["analysis"] = comm_analysis.analyze(fwd_bwd)[1]
+    return out
+
+
+def tp_ffn_call(cfg, mesh, w, st, x, gy):
+    """Part (a)'s call on `mesh`: the sharded gather FFN
+    (`swiglu_dsg_gather_sharded`, gather_shared with n_chunks 2) forward
+    and backward of x, the weights column / row parallel over 'model',
+    then dx's partial sums reduced.  Returns the call, which returns (y,
+    dx, grads)."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from repro_torch.core import dsg_linear as dl
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.sharding import P, distribute
+    dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
     wd = {"w_gate": distribute(w["w_gate"], mesh, P(None, "model")),
           "w_up": distribute(w["w_up"], mesh, P(None, "model")),
           "w_down": distribute(w["w_down"], mesh, P("model", None))}
@@ -3568,16 +3602,24 @@ def mesh_tp(rank, dev, spec) -> dict:
                 mesh, [grads[0].placements[0], Replicate()])
         return y, dx, grads
 
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    y, dx, grads = fwd_bwd()
-    out.update({"y": y.to_local().cpu(), "dx": dx.to_local().cpu(),
-                "dw": [g.to_local().cpu() for g in grads[1:]]})
-    out["ms_p50"], out["ms"] = host_ms(fwd_bwd)
-    out["profile"] = collective_ms(fwd_bwd)
-    if cuda:
-        out["ffn_peak"] = torch.cuda.max_memory_allocated()
-    return out
+    return fwd_bwd
+
+
+def traced_tp_ffn(cfg, dev, w, st, x, gy) -> dict:
+    """The dry run's count of part (a)'s call: the same call traced on
+    rank 0 of a 2-rank fake process group, on meta tensors of the same
+    shapes, on a (data 1, model 2) mesh of the ranks' device type."""
+    import torch
+    from repro_torch.launch import comm_analysis, mesh as lmesh
+
+    def meta(t):
+        return torch.empty_like(t, device="meta")
+    with lmesh.fake_world(2):
+        fmesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+        call = tp_ffn_call(cfg, fmesh, {k: meta(v) for k, v in w.items()},
+                           {k: meta(v) for k, v in st.items()}, meta(x),
+                           meta(gy))
+        return comm_analysis.analyze(call)[1]
 
 
 def moe_case(cfg, dev, dtype, tokens):
@@ -3917,11 +3959,53 @@ def tp_train_run(cfg, dev, spec, mesh=None) -> dict:
         out["profiled_step_ms"] = out["ms"].pop()
         out["losses"].pop()
         out["nccl_device_ms"] = nccl / 1e3
+    if mesh is not None:
+        # one more step, its batch laid out first as the dry run's is,
+        # its collectives counted as the dry run counts them, and the
+        # allocator's peak over it
+        from repro_torch.launch import comm_analysis
+        from repro_torch.models import specs as mspecs
+        from repro_torch.parallel.sharding import axes_for_mesh, distribute
+        batch = synthetic.batch_at(CARDS_STEPS + 1, global_batch=b,
+                                   seq_len=seq, vocab=cfg.vocab, seed=SEED)
+        bspecs = mspecs.input_specs(batch, cfg, axes_for_mesh(mesh))
+        batch = {k: distribute(v.to(dev), mesh, bspecs[k])
+                 for k, v in batch.items()}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        (state, _), out["analysis"] = comm_analysis.analyze(
+            lambda: step_fn(state, batch))
+        if cuda:
+            out["step_peak"] = torch.cuda.max_memory_allocated()
+        del batch
     del state
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def traced_tp_train(spec, mode: str, dev) -> dict:
+    """The dry run's record of (a)'s training step: internlm2-1.8b with
+    (a)'s config (the batch taken whole, as the trainer takes it) at
+    spec's train_batch on a (data 1, model 2) mesh of the ranks' device
+    type, its sharded step traced on rank 0 of a 2-rank fake group."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh as lmesh
+    over = [f"{k}={v!r}" for k, v in
+            spec.get("overrides", {}).get(ARCH, {}).items()]
+    over.append("microbatches=1")
+    if mode == "gather":
+        over += ["dsg.mode='gather_shared'", "dsg.n_chunks=2"]
+    b, seq = spec["train_batch"]
+    with lmesh.fake_world(2):
+        fmesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+        cell = dryrun.build_cell(ARCH, ShapeConfig("cards", seq, b, "train"),
+                                 fmesh, overrides=over)
+        args = dryrun.memory(cell)["argument_size_in_bytes"]
+        analysis, peak = dryrun.trace_sharded(cell)
+    return {"analysis": analysis, "peak": peak, "args": args}
 
 
 def mesh_tp_train(rank, dev, spec) -> dict:
@@ -4080,6 +4164,10 @@ def mesh_cards_phase(dev, spec=None) -> dict:
     try:
         # (a) internlm2-1.8b trained on (data 1, model 2), 2 cards
         t0 = time.perf_counter()
+        traced = {mode: traced_tp_train(spec, mode, dev)
+                  for mode in ("mask", "gather")}
+        out["traced_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         tp = mesh_spawn("tp_train", 2, tmp, spec)
         out["tp_s"] = time.perf_counter() - t0
         rows = []
@@ -4106,7 +4194,10 @@ def mesh_cards_phase(dev, spec=None) -> dict:
                    "profiled_step_ms": [r[mode].get("profiled_step_ms")
                                         for r in tp],
                    "nccl_device_ms": [r[mode].get("nccl_device_ms")
-                                      for r in tp]}
+                                      for r in tp],
+                   "analysis": [r[mode]["analysis"] for r in tp],
+                   "step_peak": [r[mode].get("step_peak") for r in tp],
+                   "traced": traced[mode]}
             rows.append(row)
             print(f"[cards] (a) {ARCH} {mode} on (data 1, model 2), "
                   f"{CARDS_STEPS} AdamW steps of {spec['train_batch']}: "
@@ -4120,10 +4211,24 @@ def mesh_cards_phase(dev, spec=None) -> dict:
                   f"{row['local_bytes']} B; NCCL device ms in a profiled "
                   f"step {row['nccl_device_ms']} of "
                   f"{row['profiled_step_ms']}", flush=True)
+            tr = traced[mode]
+            print(f"[cards] (a) {mode}: one step's collectives counted on "
+                  f"the ranks (count, bytes by kind) "
+                  f"{[coll_counts(a) for a in row['analysis']]} against the "
+                  f"dry run's record for {spec['train_batch']} on (data 1, "
+                  f"model 2) {coll_counts(tr['analysis'])}; each rank's "
+                  f"max_memory_allocated over the step {row['step_peak']} B "
+                  f"beside the traced per-device peak {tr['peak']} B",
+                  flush=True)
             if not all(math.isfinite(x) for r in tp
                        for x in r[mode]["losses"]) or \
                     max(gaps) > MESH_E_FACTOR * e:
                 fail(f"the sharded trainer ({mode}) is off: {row}")
+            for a in row["analysis"]:
+                if a["collectives"] != tr["analysis"]["collectives"] or \
+                        a.get("unmapped") != tr["analysis"].get("unmapped"):
+                    fail(f"a rank's step ({mode}) ran collectives {a}, not "
+                         f"the dry run's {tr['analysis']}")
         out["tp"] = rows
 
         # (b) deepseek-moe-16b's prefill under EP, 2 cards
@@ -4222,7 +4327,13 @@ def main_mesh_cards() -> int:
     the other 2.8 GB (33.8 GB in f32).
     (c) phase 27's collectives on four cards, and remesh_state of the
     (data 2, model 2) trainer state onto plan_after_loss(3, model=2)'s
-    mesh, every leaf equal.  Prints the card line and `{"ok": true}`."""
+    mesh, every leaf equal.  In (a) one more step on each rank, its batch
+    laid out first, runs under `launch.comm_analysis`'s counter: its
+    collectives, kind by kind in count and bytes, must equal the dry
+    run's trace of that step (the same config, batch and mesh, on rank 0
+    of a 2-rank fake group), and each rank's max_memory_allocated over
+    the step is printed beside the traced per-device peak.  Prints the
+    card line and `{"ok": true}`."""
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if torch.cuda.device_count() < 4:
@@ -4241,6 +4352,12 @@ def main_mesh_cards() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def coll_counts(analysis: dict) -> dict:
+    """{kind: (count, bytes)} of the kinds a record's analysis ran."""
+    return {k: (v["count"], v["bytes"])
+            for k, v in analysis["collectives"].items() if v["count"]}
 
 
 def rel_gap(a, b) -> float:
@@ -4282,6 +4399,9 @@ def mesh_phase(dev, spec=None) -> dict:
         out["tp_s"] = time.perf_counter() - t0
         dcfg = cfg.dsg._replace(mode="gather_shared", n_chunks=2)
         w, st, x, gy = ffn_case(cfg, dev, torch.bfloat16, spec["ffn_tokens"])
+        t0 = time.perf_counter()
+        traced = traced_tp_ffn(cfg, dev, w, st, x, gy)
+        out["traced_s"] = time.perf_counter() - t0
         wb = {k: v.detach().requires_grad_(True) for k, v in w.items()}
         xb = x.detach().requires_grad_(True)
         ffn = type("FFN", (), wb)
@@ -4334,7 +4454,7 @@ def mesh_phase(dev, spec=None) -> dict:
                 "state_allocated": res.get("state_allocated"),
                 "layout_peak": res.get("layout_peak"),
                 "ffn_peak": res.get("ffn_peak"), "ms_p50": res["ms_p50"],
-                "profile": res["profile"],
+                "profile": res["profile"], "analysis": res["analysis"],
                 "kernel_launches": res["kernel_launches"]})
         out["tp"] = tpr
         del want, f32, dropped, w, wb, st, x, xb, gy, g, y, ffn, keep
@@ -4357,7 +4477,19 @@ def mesh_phase(dev, spec=None) -> dict:
               f"{ {k: round(v, 6) for k, v in tpr['faults'].items()} }; ms p50 {[round(t['ms_p50'], 2) for t in tpr['ranks']]} "
               f"(unsharded {unsharded_ms:.2f}); "
               f"collectives {tp[0]['profile']}", flush=True)
+        tpr["traced"] = traced
+        print(f"[mesh] (a) the call's collectives counted on the ranks "
+              f"(count, bytes by kind) "
+              f"{[coll_counts(t['analysis']) for t in tpr['ranks']]}, "
+              f"FLOPs {[t['analysis']['flops'] for t in tpr['ranks']]}; "
+              f"the dry run's trace of it on a 2-rank fake group "
+              f"{coll_counts(traced)}, FLOPs {traced['flops']} "
+              f"({out['traced_s']:.2f}s)", flush=True)
         for t in tpr["ranks"]:
+            if t["analysis"]["collectives"] != traced["collectives"] or \
+                    t["analysis"].get("unmapped") != traced.get("unmapped"):
+                fail(f"the collectives counted on a rank "
+                     f"{t['analysis']} are not the fake trace's {traced}")
             if t["local_bytes"] != out["dryrun"]:
                 fail(f"a rank's shards {t['local_bytes']} are not the dry "
                      f"run's {out['dryrun']}")

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.parallel.context import whole_groups
+
 
 class DRSConfig(NamedTuple):
     gamma: float = 0.5
@@ -45,7 +47,8 @@ def keep_groups(n_out: int, cfg: DRSConfig) -> int:
 def group_scores(virtual: torch.Tensor, cfg: DRSConfig) -> torch.Tensor:
     """(..., N) virtual pre-activations -> (..., G) group scores."""
     g = virtual.shape[-1] // cfg.block
-    v = virtual.reshape(virtual.shape[:-1] + (g, cfg.block))
+    v = whole_groups(virtual, cfg.block).reshape(virtual.shape[:-1]
+                                                 + (g, cfg.block))
     if cfg.score == "relu_sum":
         return torch.relu(v).sum(dim=-1)
     if cfg.score == "abs_sum":

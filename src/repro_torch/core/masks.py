@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel.context import whole_group_grads, whole_groups
+
 
 def freeze(mask: torch.Tensor) -> torch.Tensor:
     return mask.detach()
@@ -14,8 +16,10 @@ def apply_expanded(x: torch.Tensor, group_mask: torch.Tensor,
                    block: int) -> torch.Tensor:
     """x (..., G*block) * expand(group_mask (..., G))."""
     g = group_mask.shape[-1]
+    x, group_mask = whole_groups(x, block), whole_groups(group_mask, 1)
     xs = x.reshape(x.shape[:-1] + (g, block))
-    return (xs * group_mask[..., None].to(x.dtype)).reshape(x.shape)
+    return whole_group_grads(
+        (xs * group_mask[..., None].to(x.dtype)).reshape(x.shape), block)
 
 
 def density(mask: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,35 @@
 """Dry run: every full config's state laid out on the production mesh and
-its step traced on shape-only tensors (the port's analogue of
+its step traced on shape-only tensors, sharded (the port's analogue of
 `repro.launch.dryrun` and `repro.launch.hlo_analysis`).
 
 For an (architecture x input shape x mesh) cell it
   * builds the model, the DSG state and, for a train cell, the AdamW
     state (f32 master weights for a bf16 model) on the meta device
     (shapes and dtypes, no storage, no values); the inputs at the shape's
-    global size; for decode, the state `api.prefill` leaves;
+    global size; for decode, the state `api.prefill` leaves (the
+    recurrent families' built from its shapes, with no prefill of the
+    prompt: `decode_state`);
   * lays every leaf out as a DTensor on a "fake" process group of the
     mesh's size (256 ranks for (data 16, model 16), 512 for (pod 2,
-    data 16, model 16)) by the spec rules of `models/specs.py`, ZeRO-1's
-    for the optimizer state, and records the bytes of rank 0's shards;
-  * traces the step on the unsharded model: at the global batch under
-    torch.utils.flop_counter.FlopCounterMode (the step's global FLOPs; a
-    train step is `api.train_loss`, its backward with the remat
-    recompute, over cfg.microbatches accumulated, and
-    `adamw.apply_updates`), and at one data shard's batch under
-    torch.distributed's MemTracker (the peak bytes of live tensors).
+    data 16, model 16)), a mesh of the card's type, by the spec rules of
+    `models/specs.py`, ZeRO-1's for the optimizer state, and records the
+    bytes of rank 0's shards;
+  * counts the step's global FLOPs on the unsharded model under
+    torch.utils.flop_counter.FlopCounterMode (a train step is
+    `api.train_loss`, its backward with the remat recompute, over
+    cfg.microbatches accumulated, and `adamw.apply_updates`);
+  * traces the sharded step once as rank 0 runs it (`trace_sharded`):
+    the model's parameters laid out too, a train step as
+    `launch.train`'s trainer runs it on a mesh, prefill and decode
+    through the `api` verbs with `mesh=`; `comm_analysis.CommCounter`
+    counts rank 0's FLOPs and collectives by the reference's kinds (the
+    record's `analysis` and `collectives`), and torch.distributed's
+    MemTracker the peak of its live local storage (`trace_peak_bytes`;
+    less the argument bytes, `memory.temp_size_in_bytes`).  The fake
+    group's collectives move nothing; each returns its result's shape.
+    The recurrent families take no mesh in the port: their step is
+    traced at one data shard's batch on the unsharded model, with no
+    collectives (ROADMAP.md queue 1 item 9c).
 
 Meta tensors rather than FakeTensorMode's fake CPU tensors: the same
 shapes, dtypes and ops, at a third of the time a traced op takes (a
@@ -25,10 +38,8 @@ attention's tiles).  Meta tensors are not on the card, so `kernels/ops.py`
 takes the plain versions, and no kernel is launched.
 
 It needs no card: the one entry point of the port that runs on the CPU
-by design.  No collective is traced: the sharded step's collectives on
-the fake backend are ROADMAP.md queue 1 item 9c, so a record's
-`collectives` is null.  The
-figures for the 256- and 512-rank meshes are computed, not measured.
+by design.  The figures for the 256- and 512-rank meshes are computed,
+not measured.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
       mistral-nemo-12b --shape train_4k --mesh single --out /tmp/dryrun
@@ -52,13 +63,15 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES, ShapeConfig, shape_by_name
-from repro_torch.launch import train
+from repro_torch.launch import comm_analysis, train
 from repro_torch.launch.mesh import (fake_world, make_local_mesh,
                                      make_production_mesh)
 from repro_torch.models import api, specs, transformer
 from repro_torch.optim import adamw
+from repro_torch.parallel import context as pctx
 from repro_torch.parallel.sharding import (Axes, axes_for_mesh,
                                            data_shards, distribute,
+                                           distribute_model, full_tree,
                                            model_shards)
 
 MESHES = {"single": ("single_pod", 256), "multi": ("multi_pod", 512),
@@ -100,6 +113,7 @@ class Cell:
     cache: Optional[dict]      # prefill: make_cache's; decode: prefill's
     specs: dict                # part -> tree of specs
     layout: dict               # part -> tree of DTensors
+    mesh: object               # the DeviceMesh of the layout
 
 
 def _leaves(tree):
@@ -135,6 +149,33 @@ def _decode_pos(cfg, shape: ShapeConfig):
         return torch.full((shape.global_batch,), shape.seq_len - 1,
                           dtype=torch.int32, device="meta")
     return shape.seq_len - 1
+
+
+def _prefill_state(model, dsg, cfg, batch: int, seq_len: int):
+    prompt = api.make_inputs(cfg, ShapeConfig("prompt", seq_len, batch,
+                                              "prefill"))
+    return api.prefill(model, dsg, cfg, prompt,
+                       api.make_cache(cfg, batch, seq_len, device="meta"))[1]
+
+
+def decode_state(model, dsg, cfg, shape: ShapeConfig):
+    """The decode state `api.prefill` leaves after the cell's prompt
+    (shape.seq_len tokens), on the meta device.  The recurrent families'
+    state is built without the prompt's prefill, as the reference takes
+    it from jax.eval_shape: xLSTM's states do not depend on the prompt's
+    length, so a one-token prefill gives them; zamba's do too, but for
+    the shared attention's K/V, which have the prompt's length (decode
+    uses them as a ring, ROADMAP.md §3), so those two leaves are made at
+    that length."""
+    b = shape.global_batch
+    if cfg.family not in api.RECURRENT_FAMILIES:
+        return _prefill_state(model, dsg, cfg, b, shape.seq_len)
+    st = _prefill_state(model, dsg, cfg, b, 1)
+    if cfg.family == "zamba":
+        for k in ("k", "v"):
+            g, _, _, kv, hd = st[k].shape
+            st[k] = st[k].new_empty((g, b, shape.seq_len, kv, hd))
+    return st
 
 
 def build_cell(arch: str, shape, mesh, dsg_on: bool = True,
@@ -176,12 +217,7 @@ def build_cell(arch: str, shape, mesh, dsg_on: bool = True,
         cache = api.make_cache(cfg, shape.global_batch, shape.seq_len,
                                device="meta")
     else:
-        prompt = api.make_inputs(cfg, ShapeConfig(
-            "prompt", shape.seq_len, shape.global_batch, "prefill"))
-        cache = api.prefill(
-            model, dsg, cfg, prompt,
-            api.make_cache(cfg, shape.global_batch, shape.seq_len,
-                           device="meta"))[1]
+        cache = decode_state(model, dsg, cfg, shape)
     sp["inputs"] = specs.input_specs(inputs, cfg, ax)
     if cache is not None:
         sp["cache"] = specs.cache_specs(cache, cfg, ax, n_model)
@@ -192,7 +228,7 @@ def build_cell(arch: str, shape, mesh, dsg_on: bool = True,
     layout = {part: _zip_map(lambda t, s: distribute(t, mesh, s),
                              state[part], sp[part]) for part in sp}
     return Cell(cfg, shape, ax, n_data, batch_ok, model, dsg, opt,
-                inputs, cache, sp, layout)
+                inputs, cache, sp, layout, mesh)
 
 
 def memory(cell: Cell) -> dict:
@@ -203,38 +239,26 @@ def memory(cell: Cell) -> dict:
     return mem
 
 
-def train_step(model, dsg, opt, cfg, batch, acfg, read_norm=None):
-    """The port's train step as `launch.train` runs it, with gradient
-    accumulation over cfg.microbatches (the reference's dry run's): each
-    microbatch's f32 gradients summed, then divided by the count.
-    Returns the mean loss."""
-    params = dict(model.named_parameters())
-    mb = max(1, cfg.microbatches)
-    if mb == 1:
-        loss = api.train_loss(model, dsg, cfg, batch)
-        grads = dict(zip(params, train.loss_grads(loss, params)))
-        loss = loss.detach()
-    else:
-        grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n, p in params.items()}
-        loss = 0.0
-        for i in range(mb):
-            b = {k: v.chunk(mb)[i] for k, v in batch.items()}
-            part = api.train_loss(model, dsg, cfg, b)
-            for acc, g in zip(grads.values(),
-                              train.loss_grads(part, params)):
-                acc.add_(g)
-            loss = loss + part.detach()
-        for g in grads.values():
-            g.div_(mb)
-        loss = loss / mb
-    adamw.apply_updates(params, grads, opt, acfg, read_norm=read_norm)
+def train_step(model, dsg, opt, cfg, batch, acfg, read_norm=None,
+               mesh=None, batch_axes=None):
+    """The port's train step as `launch.train`'s trainer runs it
+    (`train.step_grads`, `train.step_update`: on a mesh the gradients
+    reduced to the parameters' layout, then to ZeRO-1's, and AdamW), with
+    gradient accumulation over cfg.microbatches (the reference's dry
+    run's).  Returns the mean loss."""
+    loss, grads = train.step_grads(model, dsg, cfg, batch, mesh=mesh,
+                                   batch_axes=batch_axes,
+                                   microbatches=cfg.microbatches)
+    train.step_update(dict(model.named_parameters()), grads, opt, acfg,
+                      mesh=mesh, read_norm=read_norm)
     return loss
 
 
 def _meta_norm(norm) -> float:
     """A meta tensor holds no value: the step's scalars come from a norm
-    of 1, which changes no shape and no op of the trace."""
+    of 1, which changes no shape and no op of the trace.  A DTensor norm
+    is gathered whole first, the collective reading it takes."""
+    full_tree(norm)
     return 1.0
 
 
@@ -283,7 +307,8 @@ def _peak_tracker():
     storages, without its per-module statistics: those refuse a module
     called a second time from the top level, as the port's norms are
     (called from functions, once a microbatch; zamba's shared block once
-    a group)."""
+    a group).  A collective's wait and autograd wrap return their input,
+    as they do on the card."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
     class PeakTracker(MemTracker):
@@ -299,6 +324,15 @@ def _peak_tracker():
         def _post_bw_hook(self, module, args):
             pass
 
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in alias_ops and args[0].is_meta:
+                # on the card these return their input; their meta
+                # kernels make a new tensor, which would count it twice
+                return args[0]
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    alias_ops = (torch.ops._c10d_functional.wait_tensor.default,
+                 torch.ops._c10d_functional._wrap_tensor_autograd.default)
     return PeakTracker()
 
 
@@ -324,6 +358,52 @@ def trace_peak(cell: Cell) -> tuple:
     return sum(v["Total"] for v in peak.values()), batch
 
 
+def sharded_step_fn(cell: Cell):
+    """The cell's step on its layout on the mesh, as a launcher runs it
+    there: the model's parameters laid out as DTensors (in place, so
+    `count_flops` runs first), the DSG state, the AdamW state (ZeRO-1),
+    the inputs and the cache as `build_cell` laid them out; a train step
+    by `train_step` with `mesh=`, prefill and decode by the `api` verbs
+    with `mesh=` and `batch_axes=`.  Call it under the mesh's parallel
+    context."""
+    cfg, shape, mesh, lay = cell.cfg, cell.shape, cell.mesh, cell.layout
+    distribute_model(cell.model, mesh, cell.specs["params"])
+    if shape.kind == "train":
+        opt = dict(lay["opt"], step=0)
+        acfg = adamw.AdamWConfig()
+        return lambda: train_step(cell.model, lay["dsg"], opt, cfg,
+                                  lay["inputs"], acfg, read_norm=_meta_norm,
+                                  mesh=mesh, batch_axes=cell.ax.batch)
+    if shape.kind == "prefill":
+        return lambda: api.prefill(cell.model, lay["dsg"], cfg,
+                                   lay["inputs"], lay["cache"], mesh=mesh,
+                                   batch_axes=cell.ax.batch)
+    pos = _decode_pos(cfg, shape)
+    return lambda: api.decode_step(cell.model, lay["dsg"], cfg,
+                                   lay["inputs"]["token"], lay["cache"],
+                                   pos, mesh=mesh, batch_axes=cell.ax.batch)
+
+
+def trace_sharded(cell: Cell) -> tuple:
+    """(analysis, peak bytes) of one pass of the sharded step on rank 0
+    of the fake process group: `comm_analysis.CommCounter`'s per-device
+    FLOPs and collectives, and MemTracker's peak of live local storage
+    on the meta device (rank 0's shards of the state, inputs and cache,
+    its activations, gradients, temporaries and collective buffers)."""
+    fn = sharded_step_fn(cell)
+    lay = cell.layout
+    tracker = _peak_tracker()
+    tracker.track_external(cell.model, *_leaves(lay["dsg"]),
+                           *_leaves(lay.get("opt")),
+                           *_leaves(lay["inputs"]), *_leaves(lay.get("cache")))
+    with pctx.use_mesh(cell.mesh, batch_shardable=cell.batch_ok), \
+            tracker, comm_analysis.CommCounter() as counter:
+        fn()
+    # the device's bytes: DTensor keeps a few host scalars of its own
+    peak = tracker.get_tracker_snapshot("peak").get(torch.device("meta"))
+    return counter.analysis(), peak["Total"] if peak else 0
+
+
 def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
              remat: bool = True, overrides=None, tag: str = None,
              mesh: str = None) -> dict:
@@ -343,38 +423,75 @@ def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
         return rec
     t0 = time.perf_counter()
     with fake_world(devices):
-        dmesh = (make_local_mesh("cpu") if mesh == "local" else
+        # the card's mesh type: DTensor picks its collectives by it (on
+        # a "cpu" mesh an all_to_all becomes an all_gather and a chunk)
+        dmesh = (make_local_mesh("cuda") if mesh == "local" else
                  make_production_mesh(multi_pod=mesh == "multi",
-                                      device_type="cpu"))
+                                      device_type="cuda"))
         cell = build_cell(arch, shape, dmesh, dsg_on, remat, overrides)
         rec["memory"] = memory(cell)
-    t1 = time.perf_counter()
-    flops = count_flops(cell)
-    peak, batch = trace_peak(cell)
-    t2 = time.perf_counter()
+        t1 = time.perf_counter()
+        flops = count_flops(cell)
+        if cell.cfg.family in api.RECURRENT_FAMILIES:
+            analysis = None
+            peak, batch = trace_peak(cell)
+            rec["memory"]["temp_size_in_bytes"] = None
+        else:
+            analysis, peak = trace_sharded(cell)
+            batch = shape.global_batch // (cell.n_data if cell.batch_ok
+                                           else 1)
+            rec["memory"]["temp_size_in_bytes"] = (
+                peak - rec["memory"]["argument_size_in_bytes"])
+        t2 = time.perf_counter()
     rec.update({
         "batch_sharded": cell.batch_ok,
         "flops": flops,
         "flops_per_device_ideal": flops / devices,
+        "analysis": analysis,
         "trace_peak_bytes": peak,
         "trace_batch": batch,
         "build_s": round(t1 - t0, 2),
         "trace_s": round(t2 - t1, 2),
-        "collectives": None,
-        "notes": {
-            "memory": "per-device bytes of rank 0's DTensor shards by the "
-                      "spec rules (ZeRO-1 for the optimizer state); the "
-                      "AdamW step count is a host int",
-            "flops": "the step's global FLOPs on the unsharded model "
-                     "(torch.utils.flop_counter), remat recompute "
-                     "included; flops_per_device_ideal is flops / devices",
-            "trace_peak_bytes": f"MemTracker's peak of the step traced at "
-                                f"one data shard's batch ({batch}) with "
-                                f"the model unsharded",
-            "collectives": "not traced yet: ROADMAP.md queue 1 item "
-                           "9c"},
+        "collectives": None if analysis is None else analysis["collectives"],
+        "notes": _notes(analysis is not None, batch),
         "status": "ok"})
     return rec
+
+
+def _notes(sharded: bool, batch: int) -> dict:
+    notes = {
+        "memory": "per-device bytes of rank 0's DTensor shards by the spec "
+                  "rules (ZeRO-1 for the optimizer state); the AdamW step "
+                  "count is a host int",
+        "flops": "the step's global FLOPs on the unsharded model "
+                 "(torch.utils.flop_counter), remat recompute included; "
+                 "flops_per_device_ideal is flops / devices"}
+    if sharded:
+        notes.update({
+            "analysis": "rank 0's share of the sharded step, counted at "
+                        "dispatch (launch/comm_analysis.py): flops of its "
+                        "local ops; collectives by the reference's kinds, "
+                        "bytes of each result on this rank (f32_bytes: of "
+                        "the f32 ones); bytes: " + comm_analysis.BYTES_NOTE,
+            "trace_peak_bytes": "MemTracker's peak of live local storage "
+                                "over the sharded step on rank 0 (its "
+                                f"batch {batch}): the state's shards, "
+                                "inputs, cache, activations, gradients, "
+                                "temporaries, collective buffers",
+            "temp_size_in_bytes": "trace_peak_bytes less "
+                                  "argument_size_in_bytes",
+            "collectives": "analysis['collectives']"})
+    else:
+        reason = ("none traced: the family takes no mesh in the port "
+                  "(ROADMAP.md queue 1 item 9c)")
+        notes.update({
+            "analysis": reason,
+            "trace_peak_bytes": f"MemTracker's peak of the step traced at "
+                                f"one data shard's batch ({batch}) with the "
+                                f"model unsharded",
+            "temp_size_in_bytes": reason,
+            "collectives": reason})
+    return notes
 
 
 def _fname(out, arch, shape, mesh, tag) -> str:

@@ -122,29 +122,16 @@ def trainer_for(model, dsg, cfg, acfg: adamw.AdamWConfig, *,
     def step_fn(state, batch):
         params = dict(state["model"].named_parameters())
         with on_mesh():
-            loss = api.train_loss(state["model"], state["dsg"], cfg,
-                                  lay_batch(batch), mesh=mesh,
-                                  batch_axes=batch_axes)
-            grads = dict(zip(params, loss_grads(loss, params)))
-            if mesh is not None:
-                # partial sums over the ranks reduced to the parameters'
-                # own layout
-                grads = {n: g.redistribute(mesh, params[n].placements)
-                         for n, g in grads.items()}
+            loss, grads = step_grads(state["model"], state["dsg"], cfg,
+                                     lay_batch(batch), mesh=mesh,
+                                     batch_axes=batch_axes)
             if grad_compress:
                 # ternary codes + error feedback on the gradient stream
                 grads, state["err"] = tree_compress_with_feedback(
                     grads, state["err"], group=_stacked_leaf)
-            read_norm = None
-            if mesh is not None:
-                # ZeRO-1: each rank keeps its slice of the gradients
-                grads = {n: g.redistribute(mesh, state["opt"]["m"][n]
-                                           .placements)
-                         for n, g in grads.items()}
-                read_norm = _read_dtensor
-            _, _, metrics = adamw.apply_updates(params, grads, state["opt"],
-                                                acfg, read_norm=read_norm)
-        metrics["loss"] = full_tree(loss.detach())
+            _, _, metrics = step_update(params, grads, state["opt"], acfg,
+                                        mesh=mesh)
+        metrics["loss"] = loss
         return state, metrics
 
     def refresh_fn(state):
@@ -156,6 +143,77 @@ def trainer_for(model, dsg, cfg, acfg: adamw.AdamWConfig, *,
         return {**state, "dsg": dsg}
 
     return state, step_fn, refresh_fn
+
+
+def _microbatch(t: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Slice i of n of the batch rows.  A DTensor is sliced on each
+    rank's own rows, with no collective: microbatch i holds slice i of
+    every data shard."""
+    from repro_torch.parallel.sharding import is_dtensor
+    if n == 1:
+        return t
+    if not is_dtensor(t):
+        return t.chunk(n)[i]
+    from torch.distributed.tensor import DTensor
+    shape = (t.shape[0] // n,) + tuple(t.shape[1:])
+    return DTensor.from_local(t.to_local().chunk(n)[i], t.device_mesh,
+                              t.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def step_grads(model, dsg, cfg, batch: dict, *, mesh=None, batch_axes=None,
+               microbatches: int = 1) -> tuple:
+    """(loss, grads) of one training step: the mean loss, read whole, and
+    d loss / d p for every parameter.  Over `microbatches` slices of the
+    batch each slice's gradients are summed in f32 and the sum divided by
+    the count (the reference's dry run's accumulation); one slice gives
+    the gradients as they come.  On a mesh (run it under the mesh's
+    parallel context) each slice's gradients, the ranks' partial sums,
+    are reduced to the parameters' own layout."""
+    params = dict(model.named_parameters())
+    mb = max(1, microbatches)
+    grads = None if mb == 1 else {
+        n: torch.zeros_like(p.detach(), dtype=torch.float32)
+        for n, p in params.items()}
+    for i in range(mb):
+        part = api.train_loss(model, dsg, cfg,
+                              {k: _microbatch(v, i, mb)
+                               for k, v in batch.items()},
+                              mesh=mesh, batch_axes=batch_axes)
+        g = dict(zip(params, loss_grads(part, params)))
+        if mesh is not None:
+            # partial sums over the ranks reduced to the parameters' own
+            # layout
+            g = {n: x.redistribute(mesh, params[n].placements)
+                 for n, x in g.items()}
+        if mb == 1:
+            grads, loss = g, part.detach()
+        else:
+            for n, x in g.items():
+                grads[n].add_(x)
+            del g          # not held through the next slice's step
+            loss = part.detach() if i == 0 else loss + part.detach()
+    if mb > 1:
+        for x in grads.values():
+            x.div_(mb)
+        loss = loss / mb
+    return full_tree(loss), grads
+
+
+def step_update(params: dict, grads: dict, opt: dict,
+                acfg: adamw.AdamWConfig, *, mesh=None, read_norm=None):
+    """`adamw.apply_updates` on the step's gradients.  On a mesh (under
+    its parallel context) each rank first keeps its ZeRO-1 slice of them,
+    and the global norm is read whole unless `read_norm` reads it."""
+    if mesh is not None:
+        # ZeRO-1: each rank keeps its slice of the gradients
+        grads = {n: g.redistribute(mesh, opt["m"][n].placements)
+                 for n, g in grads.items()}
+        read_norm = read_norm or _read_dtensor
+    return adamw.apply_updates(params, grads, opt, acfg,
+                               read_norm=read_norm)
 
 
 def _stacked_leaf(name: str) -> tuple:

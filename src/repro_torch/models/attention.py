@@ -67,6 +67,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd') as one matmul."""
     h, k, d = wo.shape
+    o = pctx.whole_groups(o, 1, dim=-2)     # heads split unevenly: whole
     return o.reshape(o.shape[:-2] + (h * k,)) @ wo.reshape(h * k, d)
 
 
@@ -223,10 +224,17 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         return _out(o[:, None], p.wo), cache
     elif cache_kv_pos is not None:
         t = cache["k"].shape[1]
-        rows = (torch.as_tensor(cache_pos, device=x.device).long()
-                .clamp(0, t - s) + torch.arange(s, device=x.device))
-        cache["k"][:, rows] = _like(cache["k"], k_new)
-        cache["v"][:, rows] = _like(cache["v"], v_new)
+        if is_dtensor(cache["k"]):
+            # a sharded cache (the encoder-decoder's under a mesh): the
+            # batch's one int position, written shard by shard
+            start = min(max(int(cache_pos), 0), t - s)
+            _write_rows(cache["k"], k_new, start)
+            _write_rows(cache["v"], v_new, start)
+        else:
+            rows = (torch.as_tensor(cache_pos, device=x.device).long()
+                    .clamp(0, t - s) + torch.arange(s, device=x.device))
+            cache["k"][:, rows] = _like(cache["k"], k_new)
+            cache["v"][:, rows] = _like(cache["v"], v_new)
         k, v, kv_pos = cache["k"], cache["v"], cache_kv_pos
     elif torch.is_tensor(cache_pos):
         # per-lane dense decode: lane i writes its token at its own
@@ -246,8 +254,8 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         kv_pos = torch.arange(k.shape[1], device=x.device)
     else:
         end = cache_pos + s
-        cache["k"][:, cache_pos:end] = _like(cache["k"], k_new)
-        cache["v"][:, cache_pos:end] = _like(cache["v"], v_new)
+        _write_rows(cache["k"], k_new, cache_pos)
+        _write_rows(cache["v"], v_new, cache_pos)
         k, v = cache["k"][:, :end], cache["v"][:, :end]
         kv_pos = torch.arange(end, device=x.device)
 
@@ -321,9 +329,13 @@ def _attend_sharded(q, kf, vf, q_pos, kv_pos, causal: bool, window: int,
             start = axis_index("model", ctx.mesh) * rows
             qp = q_pos[..., start:start + q_l.shape[1]]
         if chunked:
-            return attend_chunked(q_l, k_l, v_l, qp, kv_pos, causal, window)
-        return attend_direct(q_l, k_l, v_l, qp, kv_pos, causal, window,
-                             bf16_scores=bf16_scores)
+            o = attend_chunked(q_l, k_l, v_l, qp, kv_pos, causal, window)
+        else:
+            o = attend_direct(q_l, k_l, v_l, qp, kv_pos, causal, window,
+                              bf16_scores=bf16_scores)
+        # the shard in the row-major layout its DTensor assumes: the
+        # reshapes after it (and their backward) view it by that layout
+        return o.contiguous()
 
     o = shard_map(body, ctx.mesh, (P(*q_spec), P(*kv_spec), P(*kv_spec)),
                   P(*q_spec))(q, kf, vf)
@@ -338,6 +350,34 @@ def _like(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     if is_dtensor(new) and not is_dtensor(buf):
         new = new.full_tensor()
     return new.to(buf.dtype)
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """buf[:, start:start + S] = new (B, S, ...), in place.  A DTensor
+    `buf` (batch over dim 0, sequence over dim 1 for split-KV decode) has
+    each rank write the rows it holds: DTensor's own slice assignment
+    into a sharded dim copies into a gathered temporary and leaves the
+    shards as they were."""
+    if not is_dtensor(buf):
+        buf[:, start:start + new.shape[1]] = _like(buf, new)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = buf.device_mesh, buf.placements
+    shape, off = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
+    if not isinstance(new, DTensor):
+        # a plain tensor meets a DTensor as the replicated value
+        new = DTensor.from_local(new, mesh, [Replicate()] * len(pl),
+                                 run_check=False)
+    rows_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in pl]
+    new_l = new.redistribute(mesh, rows_pl).to_local()
+    lo = max(start, off[1])
+    hi = min(start + new.shape[1], off[1] + shape[1])
+    if lo < hi:
+        buf.to_local()[:, lo - off[1]:hi - off[1]] = \
+            new_l[:, lo - start:hi - start].to(buf.dtype)
 
 
 def _write_lanes(buf: torch.Tensor, rows: torch.Tensor,
@@ -380,18 +420,25 @@ def cross_attention(p: Attention, x: torch.Tensor, mem_k: torch.Tensor,
                     q_pos: torch.Tensor, shard: str = "auto") -> torch.Tensor:
     """Decoder cross-attention of x (B, S, d) over precomputed encoder K/V
     (B, T, Kv, D): no RoPE, every memory row visible, f32 scores (the
-    reference passes no bf16_scores), chunked above CHUNK_THRESHOLD.  In
-    head mode on a mesh (`shard`, as `self_attention`'s) the weights are
-    head-sharded, so each rank attends its own heads."""
+    reference passes no bf16_scores), chunked above CHUNK_THRESHOLD.  On
+    a mesh (`shard`, as `self_attention`'s) each rank attends its own
+    heads in head mode, or in seq mode its own query rows over the whole
+    memory, when the rows divide the model axis (a one-token decode step
+    attends as it comes)."""
     q = _proj(x, p.wq)
     kf = repeat_kv(mem_k, n_heads)
     vf = repeat_kv(mem_v, n_heads)
     kv_pos = torch.arange(kf.shape[1], device=x.device)
     chunked = x.shape[1] * kf.shape[1] > CHUNK_THRESHOLD
-    if pctx.resolve_attn_shard(shard, n_heads) == "head" and is_dtensor(q):
+    mode = pctx.resolve_attn_shard(shard, n_heads)
+    if mode == "seq" and not pctx.divisible(x.shape[1]):
+        mode = "none"
+    if mode != "none" and is_dtensor(q):
+        ba = pctx.batch_axes()
+        q_spec = ((ba, None, "model", None) if mode == "head"
+                  else (ba, "model", None, None))
         o = _attend_sharded(q, kf, vf, q_pos, kv_pos, False, 0, False,
-                            chunked, (pctx.batch_axes(), None, "model", None),
-                            "head")
+                            chunked, q_spec, mode)
     elif chunked:
         o = attend_chunked(q, kf, vf, q_pos, kv_pos, False, 0)
     else:

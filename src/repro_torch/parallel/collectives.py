@@ -80,6 +80,29 @@ def ppermute(x: torch.Tensor, axis: str, perm: Sequence, mesh=None
     return out.reshape(x.shape)
 
 
+class _RowMajorGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    shard_map body's input gradients become DTensor shards, which DTensor
+    views by the row-major layout it assumes (an attention core's dq comes
+    back transposed)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _row_major_grads(body: Callable) -> Callable:
+    def run(*args):
+        return body(*(_RowMajorGrad.apply(a)
+                      if torch.is_tensor(a) and a.requires_grad else a
+                      for a in args))
+    return run
+
+
 def _grad_placements(pl: list) -> tuple:
     from torch.distributed.tensor import Partial, Replicate
     return tuple(Partial() if isinstance(p, Replicate) else p for p in pl)
@@ -106,7 +129,7 @@ def shard_map(body: Callable, mesh, in_specs: Sequence, out_specs,
     # entry per output
     out_pl = (tuple(placements(mesh, s) for s in out_specs) if multi
               else placements(mesh, out_specs))
-    fn = local_map(body, out_placements=out_pl, in_placements=in_pl,
+    fn = local_map(_row_major_grads(body), out_placements=out_pl, in_placements=in_pl,
                    in_grad_placements=grad_pl, device_mesh=mesh,
                    redistribute_inputs=True)
 

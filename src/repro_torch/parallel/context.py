@@ -16,6 +16,8 @@ from __future__ import annotations
 from contextlib import contextmanager, nullcontext
 from typing import NamedTuple, Optional
 
+import torch
+
 from repro_torch.parallel.sharding import (P, Axes, axes_for_mesh,
                                            model_shards, placements)
 
@@ -67,6 +69,58 @@ def constrain(x, *spec):
     if ctx is None or ctx.mesh.size() == 1 or not isinstance(x, DTensor):
         return x
     return x.redistribute(ctx.mesh, placements(ctx.mesh, P(*spec)))
+
+
+def whole_groups(x, block: int, dim: int = -1):
+    """`x` (..., G * block, ...), G groups along `dim`, laid out so that
+    no rank holds part of a group: a DTensor whose `dim` is split into
+    pieces that are not whole groups (deepseek-moe-16b's 22
+    shared-expert groups, whisper-large-v3's 20 heads, over a model axis
+    of 16) is gathered over that dim first, as the reference's
+    partitioner reshards such a reshape.  Anything else is returned as
+    it is."""
+    if type(x) is torch.Tensor:          # unsharded: nothing to import
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.ndim
+    mesh, pl = x.device_mesh, x.placements
+    split = [i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == dim]
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    if (x.shape[dim] // block) % n == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if i in split else p
+                                 for i, p in enumerate(pl)])
+
+
+class _WholeGroupGrads(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out by
+    `whole_groups`."""
+
+    @staticmethod
+    def forward(ctx, x, block):
+        ctx.block = block
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_groups(g, ctx.block), None
+
+
+def whole_group_grads(x, block: int):
+    """`x` (..., G * block), whose gradient `whole_groups` lays out before
+    it reaches the group reshape that made `x` (the layer after it may
+    hand back a gradient split mid-group)."""
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return _WholeGroupGrads.apply(x, block)
 
 
 def batch_axes():

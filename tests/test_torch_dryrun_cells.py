@@ -1,5 +1,6 @@
 """Full-width dry-run cells, on the CPU: `launch.dryrun.run_cell` of
-internlm2-1.8b x train_4k on the single-pod mesh (256 fake ranks), whole;
+internlm2-1.8b x train_4k on the single-pod mesh (256 fake ranks), whole,
+its sharded step traced as rank 0 runs it;
 and 8d's llava-next-34b x prefill_32k, its layout at full depth against
 the reference's spec arithmetic (params, DSG state, inputs and the
 32k-slot cache) and its step traced at one of its 60 layers (full width,
@@ -32,10 +33,23 @@ def test_internlm2_train_4k_cell():
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == _parts(mem)
     assert mem["cache"] == 0 and mem["opt"] > 0 and mem["params"] > 0
-    # the traced step holds the unsharded model, its state and gradients
+    # the sharded step traced on rank 0: its data shard's batch, its
+    # shards, activations, gradients and collective buffers
     assert rec["trace_batch"] == 16
-    assert rec["trace_peak_bytes"] > 16 * mem["params"]
-    assert rec["collectives"] is None and rec["trace_s"] > 0
+    assert rec["trace_peak_bytes"] > mem["argument_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] == (rec["trace_peak_bytes"]
+                                         - mem["argument_size_in_bytes"])
+    a = rec["analysis"]
+    assert rec["collectives"] == a["collectives"] and rec["trace_s"] > 0
+    assert set(a["collectives"]) == {"all-reduce", "all-gather",
+                                     "reduce-scatter", "all-to-all",
+                                     "collective-permute"}
+    assert all(set(v) == {"bytes", "count", "f32_bytes"}
+               for v in a["collectives"].values())
+    assert a["collective_total_bytes"] == sum(
+        v["bytes"] for v in a["collectives"].values()) > 0
+    assert rec["flops"] / 256 <= a["flops"] < rec["flops"]
+    assert a["bytes"] is None
 
 
 def test_llava_prefill_32k_cell():
