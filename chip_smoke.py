@@ -315,7 +315,18 @@ result line):
             more call on each rank runs under `launch.comm_analysis`'s
             counter: its collectives, kind by kind in count and bytes,
             must equal the dry run's count of the same call traced on
-            meta tensors on rank 0 of a 2-rank fake group.
+            meta tensors on rank 0 of a 2-rank fake group.  Then the
+            vocab-parallel loss (`transformer.sharded_cross_entropy`) on
+            2 x 128 tokens of bf16 logits at the full vocabulary (92544,
+            split over 'model'; seeded, the labels' own logits raised,
+            every shard's first and last id among the labels): the loss
+            and each rank's shard of the logits' gradient against the
+            unsharded f32 `cross_entropy` on the card, within
+            MESH_E_FACTOR x E, E the unsharded loss's own gap between
+            the bf16 logits and the f32 ones they round; the same call
+            with the labels one shard on (a planted fault) must fall
+            outside; one more call's collectives (three all-reduces)
+            must equal its fake trace.
             (b) deepseek-moe-16b's routed experts of one layer under
             expert parallelism at full width (32 of 64 experts of 2048 x
             1408 a rank, 4 x 128 tokens, bf16), DSG on as the config sets
@@ -359,7 +370,9 @@ imports nothing of JAX or of the `repro` package.
 runs, on four cards and nothing else, the whole model sharded with one
 card a rank over NCCL, which phase 27 cannot do on one card (see
 `main_mesh_cards`); one training step's collectives on each rank must
-equal the dry run's record of that step.
+equal the dry run's record of that step and its peak memory the traced
+peak within PLAN_PEAK_BAND, and `launch.serve.generate(..., mesh=)` on
+four cards must give the one card's greedy stream.
 """
 from __future__ import annotations
 
@@ -3382,8 +3395,8 @@ MESH_F32_TOL = 1e-4
 # gather, run on gloo CPU ranks only (the CPU tests):
 MESH_CPU_ONLY = (
     "(a) internlm2-1.8b's sharded train_loss, backward and AdamW steps and "
-    "(b) deepseek-moe-16b's api.prefill under expert parallelism (the "
-    "vocab-sharded logits and the DSG threshold over model-sharded groups "
+    "(b) deepseek-moe-16b's api.prefill under expert parallelism (the DSG "
+    "threshold's row over model-sharded groups and, at decode, q's heads "
     "gather over 'model'), remesh_state and the "
     "global view of make_global_batch: DTensor's all_gather segfaults "
     "under gloo on CUDA tensors; held on gloo CPU ranks by "
@@ -3565,7 +3578,74 @@ def mesh_tp(rank, dev, spec) -> dict:
         out["ffn_peak"] = torch.cuda.max_memory_allocated()
     # one more call, its collectives counted as the dry run counts them
     out["analysis"] = comm_analysis.analyze(fwd_bwd)[1]
+
+    # the vocab-parallel loss at the full vocabulary: the bf16 logits and
+    # their gradient, the same call with every label moved one shard on
+    # (a planted fault), and one more call counted
+    x32, labels = loss_case(cfg, dev, spec["loss_tokens"])
+    xb = x32.to(torch.bfloat16)
+    del x32
+    for key, lab in (("loss", labels),
+                     ("loss_fault", (labels + cfg.vocab // 2) % cfg.vocab)):
+        loss, grad = vp_loss_call(mesh, xb, lab)()
+        out[key] = (float(loss.full_tensor()), grad.to_local().cpu())
+        del loss, grad
+    call = vp_loss_call(mesh, xb, labels)
+    out["loss_ms_p50"] = host_ms(call)[0]
+    out["loss_analysis"] = comm_analysis.analyze(call)[1]
     return out
+
+
+def loss_case(cfg, dev, tokens):
+    """Seeded f32 logits (B, S, vocab) of std 3, the labels' own raised by
+    6 as a trained LM's favour them (so labels one shard on score far
+    worse), and the labels, every vocab shard's first and last id of two
+    shards among them."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    b, s = tokens
+    x = torch.randn((b, s, cfg.vocab), generator=gen, device=dev) * 3.0
+    labels = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    half = cfg.vocab // 2
+    labels[0, :4] = torch.tensor([0, half - 1, half, cfg.vocab - 1],
+                                 device=dev)
+    x.scatter_add_(-1, labels[..., None],
+                   torch.full((b, s, 1), 6.0, device=dev))
+    return x, labels
+
+
+def vp_loss_call(mesh, logits, labels):
+    """The vocab-parallel loss's forward and backward on `mesh`: logits
+    laid out (batch over 'data', vocab over 'model').  Returns the call,
+    which returns (the loss, the logits' gradient) as DTensors."""
+    import torch
+    from repro_torch.models.transformer import sharded_cross_entropy
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.sharding import P, distribute
+    lg = distribute(logits, mesh, P(("data",), None, "model"))
+    lg.requires_grad_(True)
+    lb = distribute(labels, mesh, P(("data",), None))
+
+    def call():
+        with pctx.use_mesh(mesh):
+            loss = sharded_cross_entropy(lg, lb)
+            (grad,) = torch.autograd.grad(loss, [lg])
+        return loss, grad
+
+    return call
+
+
+def traced_vp_loss(dev, logits, labels) -> dict:
+    """The dry run's count of the loss call: traced on rank 0 of a 2-rank
+    fake process group, on meta tensors of the same shapes, on a (data 1,
+    model 2) mesh of the ranks' device type."""
+    import torch
+    from repro_torch.launch import comm_analysis, mesh as lmesh
+    with lmesh.fake_world(2):
+        fmesh = lmesh.make_elastic_mesh(2, model=2, device_type=dev.type)
+        call = vp_loss_call(fmesh, torch.empty_like(logits, device="meta"),
+                            torch.empty_like(labels, device="meta"))
+        return comm_analysis.analyze(call)[1]
 
 
 def tp_ffn_call(cfg, mesh, w, st, x, gy):
@@ -4135,8 +4215,41 @@ def mesh_remesh(rank, dev, spec) -> dict:
             "plan": [plan.n_devices, plan.data, plan.model, plan.dropped]}
 
 
+CARDS_GEN = (4, 8, 8)               # generate's prompts x length, tokens
+# a sharded step's p50 on four H100 80GB HBM3 at 700 W with the layout
+# DTensor's propagation chose for the projections (mask, gather), ms
+CARDS_PROPAGATED_MS = (1168, 1028)
+
+
+def generate_case(dev):
+    """internlm2-1.8b's smoke model in f32, its DSG state and seeded
+    prompts, made alike on every rank from one generator seed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_smoke_config(ARCH).replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    b, p, _ = CARDS_GEN
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    return cfg, model, dsg, prompts
+
+
+def mesh_generate(rank, dev, spec) -> dict:
+    """`launch.serve.generate(..., mesh=)` of `generate_case` on a (data
+    2, model 2) mesh of four ranks: the greedy stream."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.serve import generate
+    cfg, model, dsg, prompts = generate_case(dev)
+    mesh = lmesh.make_elastic_mesh(4, model=2, device_type=dev.type)
+    t0 = time.perf_counter()
+    stream = generate(cfg, model, dsg, prompts, CARDS_GEN[2], mesh=mesh)
+    return {"stream": stream.cpu(), "s": time.perf_counter() - t0}
+
+
 MESH_PARTS.update(tp_train=mesh_tp_train, ep_prefill=mesh_ep_prefill,
-                  remesh=mesh_remesh)
+                  remesh=mesh_remesh, generate=mesh_generate)
 
 
 def argmax_held(got, want, tol: float) -> tuple:
@@ -4220,10 +4333,23 @@ def mesh_cards_phase(dev, spec=None) -> dict:
                   f"max_memory_allocated over the step {row['step_peak']} B "
                   f"beside the traced per-device peak {tr['peak']} B",
                   flush=True)
+            before = CARDS_PROPAGATED_MS[("mask", "gather").index(mode)]
+            ratios = [p / tr["peak"] for p in row["step_peak"]
+                      if p is not None]
+            print(f"[cards] (a) {mode}: the sharded step's p50 "
+                  f"{row['ms_p50']} ms beside {before} ms with the "
+                  f"projections laid out by DTensor's propagation (four "
+                  f"H100 80GB HBM3, 700 W); max_memory_allocated over the "
+                  f"step / traced peak {[round(x, 4) for x in ratios]} "
+                  f"(band {PLAN_PEAK_BAND})", flush=True)
             if not all(math.isfinite(x) for r in tp
                        for x in r[mode]["losses"]) or \
                     max(gaps) > MESH_E_FACTOR * e:
                 fail(f"the sharded trainer ({mode}) is off: {row}")
+            if not all(PLAN_PEAK_BAND[0] <= x <= PLAN_PEAK_BAND[1]
+                       for x in ratios):
+                fail(f"a rank's step peak ({mode}) is off the traced "
+                     f"peak: {ratios}, band {PLAN_PEAK_BAND}")
             for a in row["analysis"]:
                 if a["collectives"] != tr["analysis"]["collectives"] or \
                         a.get("unmapped") != tr["analysis"].get("unmapped"):
@@ -4276,6 +4402,27 @@ def mesh_cards_phase(dev, spec=None) -> dict:
                 and off["argmax_held"] == off["argmax_clear"]):
             fail(f"EP prefill (DSG off) is off the unsharded one: {off}")
 
+        # (d) generate under a (data 2, model 2) mesh, 4 cards
+        from repro_torch.launch.serve import generate
+        t0 = time.perf_counter()
+        gen = mesh_spawn("generate", 4, tmp, spec)
+        out["gen_s"] = time.perf_counter() - t0
+        cfg, model, dsg, prompts = generate_case(dev)
+        one = generate(cfg, model, dsg, prompts, CARDS_GEN[2]).cpu()
+        del model, dsg
+        same = [bool(torch.equal(r["stream"], one)) for r in gen]
+        out["generate"] = {"same": same, "stream": one.tolist(),
+                           "s": [r["s"] for r in gen]}
+        print(f"[cards] (d) launch.serve.generate of {ARCH}'s smoke model "
+              f"(f32, DSG on), {CARDS_GEN[0]} prompts of {CARDS_GEN[1]} + "
+              f"{CARDS_GEN[2]} greedy tokens, on (data 2, model 2): each "
+              f"rank's stream equal to the one card's {same} "
+              f"({[round(r['s'], 2) for r in gen]} s)", flush=True)
+        if not all(same):
+            fail(f"generate under the mesh is off the one card's stream: "
+                 f"{[r['stream'].tolist() for r in gen]} against "
+                 f"{one.tolist()}")
+
         # (c) the collectives on 4 cards, and remesh_state
         if spec.get("coll", True):
             coll = mesh_spawn("coll", 4, tmp, spec)
@@ -4325,15 +4472,20 @@ def main_mesh_cards() -> int:
     first slot, as the reference's EP body does).  About 16.9 GB of bf16
     weights a rank: 15.5 GB of the 31.0 GB of routed experts and half of
     the other 2.8 GB (33.8 GB in f32).
-    (c) phase 27's collectives on four cards, and remesh_state of the
-    (data 2, model 2) trainer state onto plan_after_loss(3, model=2)'s
-    mesh, every leaf equal.  In (a) one more step on each rank, its batch
-    laid out first, runs under `launch.comm_analysis`'s counter: its
-    collectives, kind by kind in count and bytes, must equal the dry
-    run's trace of that step (the same config, batch and mesh, on rank 0
-    of a 2-rank fake group), and each rank's max_memory_allocated over
-    the step is printed beside the traced per-device peak.  Prints the
-    card line and `{"ok": true}`."""
+    (d) `launch.serve.generate(..., mesh=)` of internlm2-1.8b's smoke
+    model in f32 (DSG on), 4 prompts of 8 + 8 greedy tokens, on a (data
+    2, model 2) mesh of the four cards: every rank's stream equal to the
+    one card's.  (c) phase 27's collectives on four cards, and
+    remesh_state of the (data 2, model 2) trainer state onto
+    plan_after_loss(3, model=2)'s mesh, every leaf equal.  In (a) one
+    more step on each rank, its batch laid out first, runs under
+    `launch.comm_analysis`'s counter: its collectives, kind by kind in
+    count and bytes, must equal the dry run's trace of that step (the
+    same config, batch and mesh, on rank 0 of a 2-rank fake group), and
+    each rank's max_memory_allocated over the step must be the traced
+    per-device peak within PLAN_PEAK_BAND; the step's p50 is printed
+    beside CARDS_PROPAGATED_MS.  Prints the card line and
+    `{"ok": true}`."""
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if torch.cuda.device_count() < 4:
@@ -4366,6 +4518,67 @@ def rel_gap(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def loss_check(cfg, dev, spec, tp) -> dict:
+    """Phase 27 (a)'s vocab-parallel loss against the unsharded
+    `cross_entropy` on this device: the loss and each rank's vocab shard
+    of the logits' gradient within MESH_E_FACTOR x E, E the unsharded
+    loss's own gap between the bf16 logits and the f32 ones they round;
+    the planted fault (labels one shard on) outside that bound; each
+    rank's counted collectives equal to the fake trace of the call."""
+    import torch
+    from repro_torch.models.transformer import cross_entropy
+    x32, labels = loss_case(cfg, dev, spec["loss_tokens"])
+    want = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt).requires_grad_(True)
+        loss = cross_entropy(x, labels)
+        (grad,) = torch.autograd.grad(loss, [x])
+        want[dt] = (float(loss.detach()), grad.detach())
+        del x, loss, grad
+    f32, bf = want[torch.float32], want[torch.bfloat16]
+    e_loss, e_grad = abs(bf[0] - f32[0]), rel_gap(bf[1], f32[1])
+    bound = {"loss": MESH_E_FACTOR * e_loss, "grad": MESH_E_FACTOR * e_grad}
+    half = cfg.vocab // 2
+    rows = []
+    for r, res in enumerate(tp):
+        cols = slice(r * half, (r + 1) * half)
+        rows.append({
+            "loss_gap": abs(res["loss"][0] - f32[0]),
+            "grad_gap": rel_gap(res["loss"][1].to(dev), f32[1][..., cols]),
+            "fault_loss_gap": abs(res["loss_fault"][0] - f32[0]),
+            "fault_grad_gap": rel_gap(res["loss_fault"][1].to(dev),
+                                      f32[1][..., cols]),
+            "ms_p50": res["loss_ms_p50"], "analysis": res["loss_analysis"]})
+    planted_faults(bound, {
+        f"labels one shard on, rank {r}, {k}": (k, row[f"fault_{k}_gap"])
+        for r, row in enumerate(rows) for k in ("loss", "grad")})
+    traced = traced_vp_loss(dev, x32, labels)
+    del x32, want, f32, bf
+    print(f"[mesh] (a) the vocab-parallel loss (sharded_cross_entropy) "
+          f"over {spec['loss_tokens']} tokens x vocab {cfg.vocab} in bf16, "
+          f"split over 'model': gaps to the unsharded f32 cross_entropy "
+          f"(loss, the logits' gradient) "
+          f"{[(row['loss_gap'], round(row['grad_gap'], 6)) for row in rows]}"
+          f" against {MESH_E_FACTOR} x E (E, the unsharded loss's own "
+          f"bf16-against-f32 gap: loss {e_loss:.6g}, gradient "
+          f"{e_grad:.6f}); planted fault (labels one shard on) gaps "
+          f"{[(row['fault_loss_gap'], round(row['fault_grad_gap'], 6)) for row in rows]}"
+          f"; ms p50 {[round(row['ms_p50'], 2) for row in rows]}; "
+          f"collectives counted on the ranks "
+          f"{[coll_counts(row['analysis']) for row in rows]} against the "
+          f"fake trace's {coll_counts(traced)}", flush=True)
+    for row in rows:
+        if row["analysis"]["collectives"] != traced["collectives"] or \
+                row["analysis"].get("unmapped") != traced.get("unmapped"):
+            fail(f"the loss's collectives counted on a rank "
+                 f"{row['analysis']} are not the fake trace's {traced}")
+        if not (row["loss_gap"] <= bound["loss"]
+                and row["grad_gap"] <= bound["grad"]):
+            fail(f"the vocab-parallel loss is off the unsharded one: {row}")
+    return {"e_loss": e_loss, "e_grad": e_grad, "ranks": rows,
+            "traced": traced}
+
+
 def mesh_phase(dev, spec=None) -> dict:
     """Phase 27: the model's parallel parts on rank processes of one card,
     a gloo group each part (see the module docstring).  `spec` sets the
@@ -4377,8 +4590,8 @@ def mesh_phase(dev, spec=None) -> dict:
     from repro_torch.launch import dryrun, mesh as lmesh
     from repro_torch.models import moe
     spec = dict({"device": dev.type, "ffn_tokens": [8, 256],
-                 "moe_tokens": [4, 128], "pipe_micro": [4, 2, 256]},
-                **(spec or {}))
+                 "loss_tokens": [2, 128], "moe_tokens": [4, 128],
+                 "pipe_micro": [4, 2, 256]}, **(spec or {}))
     launches_before = mesh_launches()
     out = {"cpu_only": MESH_CPU_ONLY}
     tmp = Path(tempfile.mkdtemp())
@@ -4496,6 +4709,7 @@ def mesh_phase(dev, spec=None) -> dict:
             if (not t["y_gap"] <= bound["y"] or not t["dx_gap"] <= bound["dx"]
                     or not t["dw_gap"] <= bound["dw"]):
                 fail(f"the sharded gather FFN is off the unsharded one: {t}")
+        out["loss"] = loss_check(cfg, dev, spec, tp)
 
         # (b) one MoE layer's experts under expert parallelism, 2 ranks.
         # With DSG's shared threshold each shard thresholds at its own

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import drs, masks, projection, sparse_mask
+from repro_torch.parallel import context as pctx
 
 
 class DSGConfig(NamedTuple):
@@ -203,7 +204,6 @@ def swiglu_dsg_gather_sharded(p: SwiGLU, x: torch.Tensor, state: dict,
     lax.top_k's), gathers its own weight blocks, and the shards' outputs
     are summed over 'model'.  No weight crosses a shard; the selection is
     balanced per shard (n_chunks = shards)."""
-    from repro_torch.parallel import context as pctx
     from repro_torch.parallel.collectives import psum, shard_map
     from repro_torch.parallel.sharding import P
 
@@ -237,6 +237,105 @@ def swiglu_dsg_gather_sharded(p: SwiGLU, x: torch.Tensor, state: dict,
         P(ba, *nd))(x, p.w_gate, p.w_up, p.w_down, state["r"], state["fw"])
 
 
+def select_mask_sharded(scores: torch.Tensor, n_out: int,
+                        cfg: drs.DRSConfig, mesh, batch_axes,
+                        split: bool = True) -> torch.Tensor:
+    """`drs.select_mask` inside a shard_map body whose rank holds the
+    rows of its batch shard, and (`split`) the groups of its 'model'
+    shard, (..., G / model), else every group: the same threshold as the
+    whole batch's, read from the scores gathered over 'model' (per row
+    for "topk"; row 0 of the flattened batch, from the batch shard that
+    holds it, for "shared"; the mean over every batch shard's rows for
+    "ema"), applied to the rank's scores."""
+    from repro_torch.parallel.collectives import (all_gather, axis_index,
+                                                  axis_size, psum)
+    k = drs.keep_groups(n_out, cfg)
+    if k >= n_out // cfg.block:
+        return torch.ones_like(scores, dtype=torch.float32)
+
+    def whole(t):
+        return all_gather(t, "model", -1, mesh) if split else t
+    ba = tuple(batch_axes or ())
+    if cfg.threshold_mode == "shared":
+        row = scores.reshape(-1, scores.shape[-1])[0:1]
+        if not all(axis_index(a, mesh) == 0 for a in ba):
+            row = torch.zeros_like(row)
+        for a in ba:
+            row = psum(row, a, mesh)
+        thr = drs._topk_threshold(whole(row), k)
+        thr = thr.reshape((1,) * scores.ndim)
+    elif cfg.threshold_mode in ("topk", "ema"):
+        thr = drs._topk_threshold(whole(scores), k)
+        if cfg.threshold_mode == "ema":
+            total, rows = thr.to(torch.float32).sum(), thr.numel()
+            for a in ba:
+                total = psum(total, a, mesh)
+                rows *= axis_size(a, mesh)
+            thr = total / rows
+    else:
+        raise ValueError(f"unknown threshold_mode {cfg.threshold_mode}")
+    return (scores >= thr).to(torch.float32)
+
+
+def _tp_ffn(p, x: torch.Tensor, state: Optional[dict], cfg: DSGConfig,
+            act: str) -> torch.Tensor:
+    """The SwiGLU (act "swiglu") or GELU FFN, dense or DSG-masked, under
+    tensor parallelism as one shard_map body: gate/up column-parallel
+    (each rank's own F / model hidden columns from its input, replicated
+    over 'model'), down row-parallel, the partial outputs summed over
+    'model' (one all-reduce).  The DRS mask is scored on each rank's own
+    groups and thresholded as the whole batch's (`select_mask_sharded`);
+    where the groups do not divide the axis (deepseek-moe-16b's 22
+    shared-expert groups, whisper-large-v3's 40, over 16), the virtual
+    pre-activations f(x) f(W) of each rank's columns are gathered over
+    'model' and every rank selects every group, then keeps its own
+    columns.  No weight crosses a rank."""
+    from repro_torch.parallel.collectives import (all_gather, axis_index,
+                                                  psum, shard_map)
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    mesh, ba = ctx.mesh, ctx.ax.batch
+    f = p.w_up.shape[1]
+    whole = (f // cfg.block) % ctx.n_model == 0
+    drs_cfg = cfg.drs_cfg()
+
+    def body(x_l, wu, wd, wg, r, fw):
+        up = x_l @ wu
+        h = gelu(up) if wg is None else F.silu(x_l @ wg) * up
+        if fw is not None:
+            with torch.no_grad():
+                virtual = projection.project_rows(r, x_l) @ fw
+                if whole:
+                    mask = select_mask_sharded(
+                        drs.group_scores(virtual, drs_cfg), f, drs_cfg,
+                        mesh, ba)
+                else:
+                    virtual = all_gather(virtual, "model", -1, mesh)
+                    start = axis_index("model", mesh) * h.shape[-1]
+                    mask = drs.expand_mask(select_mask_sharded(
+                        drs.group_scores(virtual, drs_cfg), f, drs_cfg,
+                        mesh, ba, split=False),
+                        cfg.block)[..., start:start + h.shape[-1]]
+            if whole:
+                h = masks.apply_expanded(h, masks.freeze(mask), cfg.block)
+            else:
+                h = h * mask.to(h.dtype)
+        return psum(h @ wd, "model", mesh)
+
+    nd = (None,) * (x.ndim - 1)
+    col = P(None, "model")
+    wg = p.w_gate if act == "swiglu" else None
+    r = fw = None
+    if state is not None:
+        r, fw = pctx.replicated(state["r"]), pctx.replicated(state["fw"])
+    return shard_map(
+        body, mesh,
+        (P(ba, *nd, None), col, P("model", None),
+         None if wg is None else col, None if r is None else P(),
+         None if fw is None else col),
+        P(ba, *nd, None))(pctx.replicated(x), p.w_up, p.w_down, wg, r, fw)
+
+
 FFN_MODES = ("dense", "mask", "gather_shared")
 _calls = dict.fromkeys(FFN_MODES, 0)
 
@@ -252,10 +351,14 @@ def swiglu_ffn(p: SwiGLU, x: torch.Tensor, state: Optional[dict],
     if mode not in FFN_MODES:
         raise ValueError(f"unknown DSG mode {cfg.mode!r}")
     _calls[mode] += 1
+    if mode != "gather_shared" and pctx.model_sharded(p.w_up, 1):
+        # weights split over 'model' (the spec rule's column / row
+        # parallel layout): the tensor-parallel body
+        return _tp_ffn(p, x, state if mode == "mask" else None, cfg,
+                       "swiglu")
     if mode == "dense":
         return swiglu_dense(p, x)
     if mode == "gather_shared":
-        from repro_torch.parallel import context as pctx
         ctx = pctx.current()
         if (ctx is not None and ctx.n_model > 1
                 and p.w_gate.shape[1] % (ctx.n_model * cfg.block) == 0):
@@ -290,6 +393,9 @@ def gelu_ffn(p: GeluFFN, x: torch.Tensor, state: Optional[dict],
     if mode not in FFN_MODES:
         raise ValueError(f"unknown DSG mode {cfg.mode!r}")
     _gelu_calls[mode] += 1
+    if mode != "gather_shared" and pctx.model_sharded(p.w_up, 1):
+        return _tp_ffn(p, x, state if mode == "mask" else None, cfg,
+                       "gelu")
     if mode == "dense":
         return gelu_dense(p, x)
     if mode == "gather_shared":

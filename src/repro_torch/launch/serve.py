@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.models import api
+from repro_torch.parallel.sharding import axes_for_mesh
 from repro_torch.runtime.fault_tolerance import ReplicaFault
 from repro_torch.serving.dsg_runtime import DSGServingConfig
 from repro_torch.serving.router import FaultToleranceConfig
@@ -53,28 +54,81 @@ ENCDEC_REFUSAL = (
     "(ROADMAP.md §3)")
 
 
-def generate(cfg, model, dsg, prompts: torch.Tensor,
-             gen_tokens: int) -> torch.Tensor:
-    """prompts (B, P) int -> greedy tokens (B, gen_tokens): one batched
-    prompt prefill into a dense cache of P + gen_tokens positions (for the
+def generate(cfg, model, dsg, prompts: torch.Tensor, gen_tokens: int, *,
+             mesh=None, temperature: float = 0.0,
+             seed: int = 0) -> torch.Tensor:
+    """prompts (B, P) int -> tokens (B, gen_tokens): one batched prompt
+    prefill into a dense cache of P + gen_tokens positions (for the
     recurrent families, the decode state the prefill returns), then
-    token-by-token decode with the same DSG masks as the prefill (the
-    reference's `generate` at temperature 0, its default).  The
-    encoder-decoder family raises NotImplementedError: it needs frames."""
+    token-by-token decode with the same DSG masks as the prefill, as the
+    reference's `generate`.  Greedy at temperature 0; above it each
+    token is `scheduler.sample_tokens` over the port's counter-hash
+    Gumbel noise of (seed, lane, output index), not the reference's
+    jax.random key (ROADMAP.md §3, deliberate deviations).
+
+    mesh: run sharded over it, through the `api` verbs' `mesh=`: a model
+    and DSG state whose tensors are not DTensors yet are laid out on it
+    by `models.specs` in place (every rank holding the same values), the
+    prompts by the batch axes, the cache by `specs.cache_specs`; each
+    step's logits are gathered whole on every rank, so every rank draws
+    the same token.  As the reference's `generate`, it passes the verbs
+    no batch axes: an MoE's expert capacity counts the whole batch, as
+    on one rank.  The recurrent families refuse a mesh (TypeError, as
+    their `api`); the encoder-decoder family raises NotImplementedError:
+    it needs frames."""
     if cfg.family == "encdec":
         raise NotImplementedError(f"generate: {ENCDEC_REFUSAL}")
     b, p_len = prompts.shape
     cache = api.make_cache(cfg, b, p_len + gen_tokens,
                            device=prompts.device)
-    logits, cache = api.prefill(model, dsg, cfg, {"tokens": prompts.long()},
-                                cache)
+    tokens, kw = prompts.long(), {}
+    if mesh is not None:
+        if cfg.family in api.RECURRENT_FAMILIES:
+            raise TypeError(f"family {cfg.family!r} takes no mesh (the "
+                            f"reference's recurrent families run unsharded)")
+        tokens, cache, dsg = _lay_out(cfg, model, dsg, tokens, cache, mesh)
+        kw = {"mesh": mesh}
+    logits, cache = api.prefill(model, dsg, cfg, {"tokens": tokens}, cache,
+                                **kw)
+    from repro_torch.parallel.sharding import full_tree
+    from repro_torch.serving.scheduler import gumbel_noise, sample_tokens
+    lanes = torch.arange(b, device=prompts.device)
+    temps = torch.full((b,), float(temperature), device=prompts.device)
+    top_ps = torch.ones((b,), device=prompts.device)
     out = []
     for i in range(gen_tokens):
-        tok = torch.argmax(logits, dim=-1)
+        logits = full_tree(logits)
+        if temperature > 0:
+            noise = gumbel_noise(seed, lanes, torch.full_like(lanes, i),
+                                 logits.shape[-1])
+            tok = sample_tokens(logits, noise, temps, top_ps).long()
+        else:
+            tok = torch.argmax(logits, dim=-1)
         out.append(tok)
         logits, cache = api.decode_step(model, dsg, cfg, tok[:, None], cache,
-                                        p_len + i)
+                                        p_len + i, **kw)
     return torch.stack(out, dim=1)
+
+
+def _lay_out(cfg, model, dsg, tokens, cache, mesh):
+    """The model, DSG state, prompts and cache of `generate` on `mesh`,
+    laid out by the reference's specs (the model in place)."""
+    from repro_torch.models import specs
+    from repro_torch.parallel.sharding import (distribute,
+                                               distribute_model,
+                                               distribute_tree, is_dtensor,
+                                               model_shards)
+    ax, n = axes_for_mesh(mesh), model_shards(mesh)
+    if not any(is_dtensor(p) for p in model.parameters()):
+        distribute_model(model, mesh, specs.param_specs(model, cfg, ax, n))
+    if dsg is not None and not any(is_dtensor(v) for v in dsg.values()):
+        dsg = distribute_tree(dsg, mesh, specs.dsg_specs(dsg, cfg, ax, n))
+    tokens = distribute(tokens, mesh,
+                        specs.input_specs({"tokens": tokens}, cfg,
+                                          ax)["tokens"])
+    cache = distribute_tree(cache, mesh,
+                            specs.cache_specs(cache, cfg, ax, n))
+    return tokens, cache, dsg
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -170,31 +170,34 @@ def step_grads(model, dsg, cfg, batch: dict, *, mesh=None, batch_axes=None,
     batch each slice's gradients are summed in f32 and the sum divided by
     the count (the reference's dry run's accumulation); one slice gives
     the gradients as they come.  On a mesh (run it under the mesh's
-    parallel context) each slice's gradients, the ranks' partial sums,
-    are reduced to the parameters' own layout."""
+    parallel context) the slices' gradients, the ranks' partial sums,
+    are summed on each rank and reduced once to the parameters' own
+    layout (`collectives.reduce_partials`)."""
     params = dict(model.named_parameters())
     mb = max(1, microbatches)
-    grads = None if mb == 1 else {
-        n: torch.zeros_like(p.detach(), dtype=torch.float32)
-        for n, p in params.items()}
+    grads = None
     for i in range(mb):
         part = api.train_loss(model, dsg, cfg,
                               {k: _microbatch(v, i, mb)
                                for k, v in batch.items()},
                               mesh=mesh, batch_axes=batch_axes)
-        g = dict(zip(params, loss_grads(part, params)))
-        if mesh is not None:
-            # partial sums over the ranks reduced to the parameters' own
-            # layout
-            g = {n: x.redistribute(mesh, params[n].placements)
-                 for n, x in g.items()}
+        g = loss_grads(part, params)
         if mb == 1:
-            grads, loss = g, part.detach()
+            grads, loss = dict(zip(params, g)), part.detach()
+        elif grads is None:
+            grads = {n: x.float() for n, x in zip(params, g)}
+            loss = part.detach()
         else:
-            for n, x in g.items():
+            for n, x in zip(params, g):
                 grads[n].add_(x)
-            del g          # not held through the next slice's step
-            loss = part.detach() if i == 0 else loss + part.detach()
+            loss = loss + part.detach()
+        del g              # not held through the next slice's step
+    if mesh is not None:
+        # the ranks' partial sums, accumulated over the slices, reduced
+        # once to the parameters' own layout
+        from repro_torch.parallel.collectives import reduce_partials
+        grads = reduce_partials(grads, {n: p.placements
+                                        for n, p in params.items()})
     if mb > 1:
         for x in grads.values():
             x.div_(mb)

@@ -14,13 +14,18 @@ wo (H, D, d).  Two cache kinds reach `self_attention`:
 The encoder-decoder family adds `cross_attention` over encoder-memory K/V
 (`memory_kv`, computed once at prefill): no RoPE, f32 scores.
 
-Inside a parallel context on a mesh with a 'model' axis, `self_attention`
-places its activations as the reference's sharding constraints do
-(`parallel.context.constrain`): decode over a dense cache is split-KV
-(the keys sequence-sharded over 'model'), "head" mode shards q and K/V by
-head, "seq" mode shards q by sequence and gathers K/V.  A dense cache
-laid out as a DTensor sequence-sharded over 'model' is written in place,
-each rank writing the rows that fall in its shard.
+Inside a parallel context on a mesh with a 'model' axis, a layer whose
+weights are DTensors runs as shard_map bodies that keep the reference's
+layout (its sharding constraints, as GSPMD partitions them): "head" mode
+projects each rank's own q heads and the K/V heads they read, attends
+them and sums the out-projection's partial outputs over 'model'; "seq"
+mode (replicated weights) attends each rank's own query rows over all
+keys and gathers the rows; decode over a cache sequence-sharded over
+'model' is split-KV (every head's q gathered, each rank's key rows
+scored, the softmax's max and sum and the product with V reduced over
+'model').  A dense cache laid out as a DTensor sequence-sharded over
+'model' is written in place, each rank writing the rows that fall in
+its shard.
 """
 from __future__ import annotations
 
@@ -201,6 +206,12 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     "head" when the heads divide the model axis, else "seq").
     """
     s = x.shape[1]
+    mode = pctx.resolve_attn_shard(shard, n_heads)
+    if mode != "none" and page_table is None and is_dtensor(p.wq):
+        return _tp_self_attention(
+            p, x, n_heads=n_heads, rope_theta=rope_theta, q_pos=q_pos,
+            causal=causal, window=window, cache=cache, cache_pos=cache_pos,
+            cache_kv_pos=cache_kv_pos, bf16_scores=bf16_scores, mode=mode)
     q = _proj(x, p.wq)
     k_new = _proj(x, p.wk)
     v_new = _proj(x, p.wv)
@@ -270,31 +281,7 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         kv_pos = torch.arange(k.shape[1], device=x.device)
     kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
 
-    # the reference's sharding constraints
-    mode = pctx.resolve_attn_shard(shard, n_heads)
-    ba = pctx.batch_axes()
-    q_spec = None
-    if mode != "none":
-        if cache is not None and s == 1:
-            # split-KV decode: the keys sequence-sharded over 'model'
-            q = pctx.constrain(q, ba, None, None, None)
-            kf = pctx.constrain(kf, ba, "model", None, None)
-            vf = pctx.constrain(vf, ba, "model", None, None)
-        elif mode == "head":
-            q_spec = (ba, None, "model", None)
-            q = pctx.constrain(q, *q_spec)
-            kf = pctx.constrain(kf, ba, None, "model", None)
-            vf = pctx.constrain(vf, ba, None, "model", None)
-        else:   # seq parallel: queries sharded over sequence, K/V gathered
-            q_spec = (ba, "model", None, None)
-            q = pctx.constrain(q, *q_spec)
-            kf = pctx.constrain(kf, ba, None, None, None)
-            vf = pctx.constrain(vf, ba, None, None, None)
-
-    if q_spec is not None and is_dtensor(q):
-        o = _attend_sharded(q, kf, vf, q_pos, kv_pos, causal, window,
-                            bf16_scores, chunked, q_spec, mode)
-    elif chunked:
+    if chunked:
         o = attend_chunked(q, kf, vf, q_pos, kv_pos, causal, window)
     else:
         o = attend_direct(q, kf, vf, q_pos, kv_pos, causal, window,
@@ -302,46 +289,301 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     out = _out(o, p.wo)
     if cache is None:
         return out, {"k": k_new, "v": v_new}
-    if mode != "none":
-        return out, {"k": pctx.constrain(cache["k"], ba, "model", None, None),
-                     "v": pctx.constrain(cache["v"], ba, "model", None, None)}
     return out, cache
 
 
-def _attend_sharded(q, kf, vf, q_pos, kv_pos, causal: bool, window: int,
-                    bf16_scores: bool, chunked: bool, q_spec: tuple,
-                    mode: str):
-    """The attention core of head or seq parallel attention as a
-    shard_map over the parallel context's mesh: each rank attends its own
-    heads (head mode), or its own query rows over all keys (seq mode), in
-    plain tensors, so no op has to carry a head- or row-sharded layout
-    through its reshapes.  Seq mode gathers the rows over 'model'
-    afterwards.  q_pos (S,) and kv_pos (T,) are the global positions."""
+def _tp_specs(mode: str, n_kv: int):
+    """(batch axes, the q/wq/wo head entry, the k/v/wk/wv head entry) of
+    the sharded layout: heads over 'model' in head mode, K/V heads too
+    when they divide the axis (the weights' spec rule, `models.specs`);
+    every head on every rank in seq mode."""
+    ctx = pctx.current()
+    head = "model" if mode == "head" else None
+    kv = head if n_kv % ctx.n_model == 0 else None
+    return ctx.ax.batch, head, kv
+
+
+def _positions(q_pos: torch.Tensor):
+    """Per-lane positions (B, S) go into a body by the batch's spec;
+    batch-shared ones (S,) as they are."""
+    from repro_torch.parallel.sharding import P
+    if q_pos.ndim == 2:
+        return pctx.replicated(q_pos), P(pctx.batch_axes(), None)
+    return q_pos, None
+
+
+def _tp_project(x, ws: tuple, head, q_pos=None, rope_theta: float = 0.0
+                ) -> tuple:
+    """x (B, S, d) -> one (B, S, h, D) projection per weight of `ws`, as
+    a shard_map body: each rank multiplies its input (replicated over
+    'model') by its own heads of the weights (`head` 'model'), or by
+    whole replicated weights (`head` None), with no collective.  With
+    rope_theta > 0 the first output (q, or k) is rotated at `q_pos`."""
+    from repro_torch.parallel.collectives import shard_map
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    ba = ctx.ax.batch
+    pos, pos_spec = (_positions(q_pos) if rope_theta > 0 else (None, None))
+
+    def body(x_l, pos_l, *w_l):
+        out = [_proj(x_l, w) for w in w_l]
+        if rope_theta > 0:
+            rp = pos_l if pos_l.ndim == 2 else pos_l[None, :]
+            out[0] = apply_rope(out[0], rp, rope_theta)
+        return tuple(out)
+
+    return shard_map(
+        body, ctx.mesh,
+        (P(ba, None, None), pos_spec) + (P(None, head, None),) * len(ws),
+        (P(ba, None, head, None),) * len(ws),
+        redundant=() if head else ("model",))(
+            pctx.replicated(x), pos, *ws)
+
+
+def _kv_heads(k: torch.Tensor, group: int, h0, h_l: int, kv0=0
+              ) -> torch.Tensor:
+    """Query heads h0 .. h0 + h_l of `k` (B, T, n, D), which holds the K/V
+    heads from kv0 on, each K/V head serving `group` query heads
+    (`repeat_kv` for those heads alone)."""
+    if group == 1 and h_l == k.shape[2]:
+        return k
+    idx = torch.div(h0 + torch.arange(h_l, device=k.device), group,
+                    rounding_mode="floor") - kv0
+    return k.index_select(2, idx)
+
+
+def _tp_core(q, k, v, wo, qp, kv_pos, *, mesh, group: int, h0, kv0,
+             head, rows, causal: bool, window: int, bf16_scores: bool,
+             chunked: bool):
+    """Inside a body: this rank's query heads h0.. (k/v holding the K/V
+    heads from kv0 on) or rows attended, times its rows of wo, summed
+    over 'model' in head mode or, in seq mode with `rows`, the rows
+    gathered."""
+    from repro_torch.parallel.collectives import all_gather, psum
+    h_l = q.shape[2]
+    k = _kv_heads(k, group, h0, h_l, kv0)
+    v = _kv_heads(v, group, h0, h_l, kv0)
+    if chunked:
+        o = attend_chunked(q, k, v, qp, kv_pos, causal, window)
+    else:
+        o = attend_direct(q, k, v, qp, kv_pos, causal, window,
+                          bf16_scores=bf16_scores)
+    out = _out(o, wo)
+    if head:
+        return psum(out, "model", mesh)
+    if rows:
+        return all_gather(out, "model", 1, mesh)
+    return out
+
+
+def _tp_attention(p: Attention, x, q_pos, *, n_heads: int,
+                  rope_theta: float, causal: bool, window: int,
+                  bf16_scores: bool, chunked: bool, mode: str):
+    """Attention with no cache (training, the encoder) as one shard_map
+    body: the projections of this rank's query heads and of the K/V
+    heads they read (head mode: K/V heads that do not divide the axis
+    are sliced from the replicated weights), or of its query rows and
+    every key (seq mode, replicated weights), then `_tp_core`.  Where
+    seq mode's rows do not divide the axis, every rank computes them
+    all.  Returns the output (B, S, d), replicated over 'model'."""
     from repro_torch.parallel.collectives import axis_index, shard_map
     from repro_torch.parallel.sharding import P
     ctx = pctx.current()
-    kv_spec = q_spec if mode == "head" else (q_spec[0], None, None, None)
+    mesh, n = ctx.mesh, ctx.n_model
+    n_kv = p.wk.shape[1]
+    ba, head, kv = _tp_specs(mode, n_kv)
+    group = n_heads // n_kv
+    s = x.shape[1]
+    rows = "model" if mode == "seq" and s % n == 0 else None
+    pos, pos_spec = _positions(q_pos)
 
-    def body(q_l, k_l, v_l):
-        qp = q_pos
-        if mode == "seq":       # this rank's rows, cut as DTensor cuts them
-            rows = -(-q_pos.shape[-1] // ctx.n_model)
-            start = axis_index("model", ctx.mesh) * rows
-            qp = q_pos[..., start:start + q_l.shape[1]]
-        if chunked:
-            o = attend_chunked(q_l, k_l, v_l, qp, kv_pos, causal, window)
+    def body(x_l, wq, wk, wv, wo, qp):
+        h_l = wq.shape[1]
+        me = axis_index("model", mesh)
+        h0 = me * h_l if head else 0
+        kv0 = me * wk.shape[1] if kv else 0
+        if head and not kv:     # the replicated K/V heads this rank reads
+            kv0 = h0 // group
+            hi = (h0 + h_l - 1) // group + 1
+            wk, wv = wk[:, kv0:hi], wv[:, kv0:hi]
+        xq, qq = x_l, qp
+        if rows:
+            start = me * (s // n)
+            xq = x_l[:, start:start + s // n]
+            qq = qp[..., start:start + s // n]
+        q, k, v = _proj(xq, wq), _proj(x_l, wk), _proj(x_l, wv)
+        if rope_theta > 0:
+            q = apply_rope(q, qq if qq.ndim == 2 else qq[None, :],
+                           rope_theta)
+            k = apply_rope(k, qp if qp.ndim == 2 else qp[None, :],
+                           rope_theta)
+        return _tp_core(q, k, v, wo, qq, qp, mesh=mesh, group=group, h0=h0,
+                        kv0=kv0, head=head, rows=rows, causal=causal,
+                        window=window, bf16_scores=bf16_scores,
+                        chunked=chunked)
+
+    return shard_map(
+        body, mesh,
+        (P(ba, None, None), P(None, head, None), P(None, kv, None),
+         P(None, kv, None), P(head, None, None), pos_spec),
+        P(ba, None, None),
+        redundant=("model",) if mode == "seq" and not rows else ())(
+            pctx.replicated(x), p.wq, p.wk, p.wv, p.wo, pos)
+
+
+def _tp_attend(q, k, v, wo, q_pos, kv_pos, *, n_heads: int, causal: bool,
+               window: int, bf16_scores: bool, chunked: bool, mode: str):
+    """`_tp_core` as a body of its own, on projections already made:
+    q (B, S, H, D) by its heads in head mode, k/v (B, T, Kv, D) by their
+    heads where they divide the axis, else whole; in seq mode q's rows
+    are cut here.  kv_pos (T,) global.  Returns the output (B, S, d),
+    replicated over 'model'."""
+    from repro_torch.parallel.collectives import axis_index, shard_map
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    mesh, n = ctx.mesh, ctx.n_model
+    n_kv = k.shape[2]
+    ba, head, kv = _tp_specs(mode, n_kv)
+    s = q.shape[1]
+    rows = "model" if mode == "seq" and s % n == 0 else None
+    pos, pos_spec = _positions(q_pos)
+
+    def body(q_l, k_l, v_l, wo_l, qp):
+        me = axis_index("model", mesh)
+        if rows:
+            qp = qp[..., me * (s // n):(me + 1) * (s // n)]
+        return _tp_core(q_l, k_l, v_l, wo_l, qp, kv_pos, mesh=mesh,
+                        group=n_heads // n_kv,
+                        h0=me * q_l.shape[2] if head else 0,
+                        kv0=me * k_l.shape[2] if kv else 0, head=head,
+                        rows=rows, causal=causal, window=window,
+                        bf16_scores=bf16_scores, chunked=chunked)
+
+    return shard_map(
+        body, mesh,
+        (P(ba, rows, head, None), P(ba, None, kv, None),
+         P(ba, None, kv, None), P(head, None, None), pos_spec),
+        P(ba, None, None),
+        redundant=("model",) if mode == "seq" and not rows else ())(
+            q, k, v, wo, pos)
+
+
+def _tp_split_kv(q, k, v, wo, q_pos, kv_pos, *, n_heads: int, causal: bool,
+                 window: int, bf16_scores: bool, mode: str):
+    """Split-KV decode as one shard_map body: q (B, 1, H, D) with every
+    head on every rank (gathered over 'model' from its projection), the
+    keys k/v (B, T, Kv, D) sequence-sharded over 'model' as the cache
+    lies.  Each rank scores its own key rows; the softmax's max and sum
+    and the probabilities times V are reduced over 'model' (three
+    all-reduces, as the reference's partitioner does), then the output
+    projection of this rank's heads, summed over 'model' (head mode), or
+    of all of them (seq mode).  kv_pos (T,) global.  No backward."""
+    from repro_torch.parallel.collectives import (axis_index, pmax, psum,
+                                                  shard_map)
+    from repro_torch.parallel.sharding import P
+    ctx = pctx.current()
+    mesh = ctx.mesh
+    ba, head, _ = _tp_specs(mode, k.shape[2])
+    chunk = -(-k.shape[1] // ctx.n_model)       # DTensor's cut of T
+    pos, pos_spec = _positions(q_pos)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bf16 = bf16_scores and q.dtype == torch.bfloat16
+
+    def body(q_l, k_l, v_l, wo_l, qp):
+        me = axis_index("model", mesh)
+        m = _mask(qp, kv_pos[me * chunk:me * chunk + k_l.shape[1]], causal,
+                  window)
+        m = m[:, None] if m.ndim == 3 else m[None, None]
+        kf, vf = repeat_kv(k_l, n_heads), repeat_kv(v_l, n_heads)
+        if bf16:
+            sc = torch.einsum("bqhd,bkhd->bhqk", q_l, kf) * scale
+            sc = torch.where(m, sc, NEG).float()
         else:
-            o = attend_direct(q_l, k_l, v_l, qp, kv_pos, causal, window,
-                              bf16_scores=bf16_scores)
-        # the shard in the row-major layout its DTensor assumes: the
-        # reshapes after it (and their backward) view it by that layout
-        return o.contiguous()
+            sc = torch.einsum("bqhd,bkhd->bhqk", q_l.float(),
+                              kf.float()) * scale
+            sc = torch.where(m, sc, NEG)
+        top = pmax(sc.amax(dim=-1, keepdim=True), "model", mesh)
+        e = torch.exp(sc - top)
+        p = e / psum(e.sum(dim=-1, keepdim=True), "model", mesh)
+        if bf16:
+            p = p.to(torch.bfloat16).float()
+        o = psum(torch.einsum("bhqk,bkhd->bqhd", p, vf.float()), "model",
+                 mesh).to(q_l.dtype)
+        if head:
+            h_l = wo_l.shape[0]
+            return psum(_out(o[:, :, me * h_l:(me + 1) * h_l], wo_l),
+                        "model", mesh)
+        return _out(o, wo_l)
 
-    o = shard_map(body, ctx.mesh, (P(*q_spec), P(*kv_spec), P(*kv_spec)),
-                  P(*q_spec))(q, kf, vf)
-    if mode == "seq":
-        o = pctx.constrain(o, q_spec[0], None, None, None)
-    return o
+    return shard_map(
+        body, mesh,
+        (P(ba, None, None, None), P(ba, "model", None, None),
+         P(ba, "model", None, None), P(head, None, None), pos_spec),
+        P(ba, None, None))(q, k, v, wo, pos)
+
+
+def _tp_self_attention(p: Attention, x, *, n_heads: int, rope_theta: float,
+                       q_pos, causal: bool, window: int, cache, cache_pos,
+                       cache_kv_pos, bf16_scores: bool, mode: str):
+    """`self_attention` of a model whose weights are DTensors, in a
+    parallel context with a 'model' axis: the projections, the core and
+    the output projection as explicit shard_map bodies, so the only
+    collectives are the reference's: the output's all-reduce over
+    'model', and at decode the gathers of q and of the new K/V row and
+    the split-KV softmax's reductions.  With no cache it returns (out,
+    None): the K/V of a rank's heads are not laid out for a caller.  A
+    cache is written as `self_attention` writes it, shard by shard."""
+    n_kv = p.wk.shape[1]
+    _, head, kv = _tp_specs(mode, n_kv)
+    s = x.shape[1]
+    kw = dict(n_heads=n_heads, causal=causal, window=window,
+              bf16_scores=bf16_scores, mode=mode)
+    if cache is None:
+        chunked = s * s > CHUNK_THRESHOLD and q_pos.ndim == 1
+        return _tp_attention(p, x, q_pos, rope_theta=rope_theta,
+                             chunked=chunked, **kw), None
+    (q,) = _tp_project(x, (p.wq,), head, q_pos, rope_theta)
+    k_new, v_new = _tp_project(x, (p.wk, p.wv), kv, q_pos, rope_theta)
+    t = cache["k"].shape[1]
+    chunked = s * t > CHUNK_THRESHOLD and q_pos.ndim == 1
+    if cache_kv_pos is not None:
+        start = min(max(int(cache_pos), 0), t - s)
+        _write_rows(cache["k"], k_new, start)
+        _write_rows(cache["v"], v_new, start)
+        k, v, kv_pos = cache["k"], cache["v"], cache_kv_pos
+    elif torch.is_tensor(cache_pos):
+        if s != 1 or cache_pos.ndim != 1:
+            raise NotImplementedError(
+                "the dense cache takes per-lane single-token decode or a "
+                "scalar write position")
+        pos = cache_pos.long().clamp(0, t - 1)
+        _write_lanes(cache["k"], k_new[:, 0], pos)
+        _write_lanes(cache["v"], v_new[:, 0], pos)
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(t, device=x.device)
+    else:
+        _write_rows(cache["k"], k_new, cache_pos)
+        _write_rows(cache["v"], v_new, cache_pos)
+        end = t if chunked else cache_pos + s
+        if s == 1 and pctx.model_sharded(cache["k"], 1):
+            # one token over the sequence-sharded cache: split-KV, the
+            # slots past it masked as causality masks them
+            end = t
+            k, v = cache["k"], cache["v"]
+        elif cache_pos == 0 and not chunked:
+            # the rows just written, as the cache holds them
+            k, v = k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype)
+        else:
+            k, v = cache["k"][:, :end], cache["v"][:, :end]
+        kv_pos = torch.arange(end, device=x.device)
+    if s == 1 and pctx.model_sharded(k, 1):
+        out = _tp_split_kv(q, k, v, p.wo, q_pos, kv_pos, **kw)
+    else:
+        out = _tp_attend(q, pctx.replicated(k), pctx.replicated(v), p.wo,
+                         q_pos, kv_pos, chunked=chunked, **kw)
+    ba = pctx.batch_axes()
+    return out, {"k": pctx.constrain(cache["k"], ba, "model", None, None),
+                 "v": pctx.constrain(cache["v"], ba, "model", None, None)}
 
 
 def _like(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -393,7 +635,6 @@ def _write_lanes(buf: torch.Tensor, rows: torch.Tensor,
         return
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    from repro_torch.parallel.sharding import distribute, P
     mesh, pl = buf.device_mesh, buf.placements
     shape, off = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
     lane_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
@@ -401,7 +642,9 @@ def _write_lanes(buf: torch.Tensor, rows: torch.Tensor,
 
     def local(t):
         if not isinstance(t, DTensor):
-            t = distribute(t, mesh, P())
+            # a plain tensor meets a DTensor as the replicated value
+            t = DTensor.from_local(t, mesh, [Replicate()] * len(pl),
+                                   run_check=False)
         return t.redistribute(mesh, lane_pl).to_local()
 
     rows_l, pos_l = local(rows), local(pos)
@@ -421,31 +664,39 @@ def cross_attention(p: Attention, x: torch.Tensor, mem_k: torch.Tensor,
     """Decoder cross-attention of x (B, S, d) over precomputed encoder K/V
     (B, T, Kv, D): no RoPE, every memory row visible, f32 scores (the
     reference passes no bf16_scores), chunked above CHUNK_THRESHOLD.  On
-    a mesh (`shard`, as `self_attention`'s) each rank attends its own
-    heads in head mode, or in seq mode its own query rows over the whole
-    memory, when the rows divide the model axis (a one-token decode step
-    attends as it comes)."""
+    a mesh with DTensor weights (`shard`, as `self_attention`'s) each
+    rank attends its own heads in head mode, or in seq mode its own query
+    rows over the whole memory where the rows divide the model axis; one
+    token over a memory sequence-sharded over 'model' is split-KV."""
+    kv_pos = torch.arange(mem_k.shape[1], device=x.device)
+    chunked = x.shape[1] * mem_k.shape[1] > CHUNK_THRESHOLD
+    mode = pctx.resolve_attn_shard(shard, n_heads)
+    if mode != "none" and is_dtensor(p.wq):
+        _, head, _ = _tp_specs(mode, mem_k.shape[2])
+        (q,) = _tp_project(x, (p.wq,), head)
+        kw = dict(n_heads=n_heads, causal=False, window=0,
+                  bf16_scores=False, mode=mode)
+        if x.shape[1] == 1 and pctx.model_sharded(mem_k, 1):
+            return _tp_split_kv(q, mem_k, mem_v, p.wo, q_pos, kv_pos, **kw)
+        return _tp_attend(q, pctx.replicated(mem_k), pctx.replicated(mem_v),
+                          p.wo, q_pos, kv_pos, chunked=chunked, **kw)
     q = _proj(x, p.wq)
     kf = repeat_kv(mem_k, n_heads)
     vf = repeat_kv(mem_v, n_heads)
-    kv_pos = torch.arange(kf.shape[1], device=x.device)
-    chunked = x.shape[1] * kf.shape[1] > CHUNK_THRESHOLD
-    mode = pctx.resolve_attn_shard(shard, n_heads)
-    if mode == "seq" and not pctx.divisible(x.shape[1]):
-        mode = "none"
-    if mode != "none" and is_dtensor(q):
-        ba = pctx.batch_axes()
-        q_spec = ((ba, None, "model", None) if mode == "head"
-                  else (ba, "model", None, None))
-        o = _attend_sharded(q, kf, vf, q_pos, kv_pos, False, 0, False,
-                            chunked, q_spec, mode)
-    elif chunked:
+    if chunked:
         o = attend_chunked(q, kf, vf, q_pos, kv_pos, False, 0)
     else:
         o = attend_direct(q, kf, vf, q_pos, kv_pos, False, 0)
     return _out(o, p.wo)
 
 
-def memory_kv(p: Attention, memory: torch.Tensor) -> tuple:
-    """Encoder-memory K/V (B, T, Kv, D) for cross-attention."""
+def memory_kv(p: Attention, memory: torch.Tensor,
+              shard: str = "auto") -> tuple:
+    """Encoder-memory K/V (B, T, Kv, D) for cross-attention; with sharded
+    weights in head mode (`shard`, as `cross_attention`'s) each rank
+    projects its own K/V heads."""
+    mode = pctx.resolve_attn_shard(shard, p.wq.shape[1])
+    if mode != "none" and is_dtensor(p.wk):
+        _, _, kv = _tp_specs(mode, p.wk.shape[1])
+        return _tp_project(memory, (p.wk, p.wv), kv)
     return _proj(memory, p.wk), _proj(memory, p.wv)

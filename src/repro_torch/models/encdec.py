@@ -181,7 +181,8 @@ def decode(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
            tokens: torch.Tensor, memory_kv: dict, *,
            cache: Optional[dict] = None, pos0=0, last_only: bool = False):
     """Decoder pass: tokens (B, s) -> (logits, cache).  memory_kv {'k',
-    'v'} (L, B, T, Kv, D): the encoder K/V of every decoder layer.  cache:
+    'v'} (L, B, T, Kv, D), or lists of L (B, T, Kv, D): the encoder K/V
+    of every decoder layer (`build_memory_kv`).  cache:
     the self-attention cache of Smax slots, written in place at positions
     pos0 (an int shared by the batch, as the reference's) onwards, the
     start clamped into [0, Smax - s] as the reference's
@@ -214,12 +215,19 @@ def decode(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
     return x @ model.lm_head.to(x.dtype), cache
 
 
-def build_memory_kv(model: EncDecModel, enc_states: torch.Tensor) -> dict:
+def build_memory_kv(model: EncDecModel, enc_states: torch.Tensor,
+                    shard: str = "auto", stack: bool = True) -> dict:
     """Every decoder layer's cross K/V from the encoder states:
-    {'k', 'v'} (L, B, T, Kv, D)."""
-    kv = [attn.memory_kv(l.cross, enc_states) for l in model.dec_layers]
-    return {"k": torch.stack([k for k, _ in kv]),
-            "v": torch.stack([v for _, v in kv])}
+    {'k', 'v'} (L, B, T, Kv, D), the decode state's layout; with stack
+    False, lists of each layer's (B, T, Kv, D), which a training forward
+    takes (the backward of one layer's slice of a stack makes zeros of
+    the whole stack)."""
+    kv = [attn.memory_kv(l.cross, enc_states, shard)
+          for l in model.dec_layers]
+    ks, vs = [k for k, _ in kv], [v for _, v in kv]
+    if not stack:
+        return {"k": ks, "v": vs}
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def train_loss(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
@@ -230,7 +238,8 @@ def train_loss(model: EncDecModel, dsg: Optional[dict], cfg: ModelConfig,
     takes its layout from the parallel context."""
     enc = encode(model, dsg, cfg, batch["frames"])
     logits, _ = decode(model, dsg, cfg, batch["tokens"],
-                       build_memory_kv(model, enc))
+                       build_memory_kv(model, enc, cfg.attn_shard,
+                                       stack=False))
     return sharded_cross_entropy(logits, batch["labels"])
 
 
@@ -249,7 +258,8 @@ def prefill(model: EncDecModel, dsg, cfg: ModelConfig, frames, tokens,
     if cache is None:
         raise ValueError("an encoder-decoder prefill needs the decoder "
                          "cache of api.make_cache")
-    mem = build_memory_kv(model, encode(model, dsg, cfg, frames))
+    mem = build_memory_kv(model, encode(model, dsg, cfg, frames),
+                          cfg.attn_shard)
     logits, cache = decode(model, dsg, cfg, tokens, mem, cache=cache,
                            pos0=0, last_only=True)
     return logits[:, -1], {"self": cache, "memory": mem}

@@ -188,7 +188,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     nd = (None,) * (tokens.ndim - 1)
     return shard_map(body, ctx.mesh,
                      (P("model", None) if by_vocab else P(), P(ba, *nd)),
-                     P(ba, *nd, None))(table, tokens)
+                     P(ba, *nd, None))(table, pctx.replicated(tokens))
 
 
 def _layer_dsg(dsg: Optional[dict], l: int) -> Optional[dict]:
@@ -367,14 +367,50 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return ce.mean()
 
 
-def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """`cross_entropy` inside a parallel context: vocab-sharded logits are
-    gathered over 'model' first (DTensor has no gather along a sharded
-    dim), the batch stays sharded."""
-    logits = pctx.constrain(logits, pctx.batch_axes(),
-                            *([None] * (logits.ndim - 1)))
-    return cross_entropy(logits, labels)
+    """`cross_entropy` inside a parallel context.  Logits whose vocab is
+    split over 'model' take Megatron's vocab-parallel form, a shard_map
+    body over the vocab shards: each rank's max over its shard, reduced
+    by max over 'model'; its sum of exp(logit - max), summed over
+    'model'; the gold logit from the rank whose shard holds the label
+    (zero elsewhere), summed over 'model'; ce = log(sum) + max - gold, in
+    f32.  No rank holds more than its own (rows, S, V / model) block,
+    forward or backward: logits laid out otherwise are split over the
+    vocab first.  Where 'model' does not divide the vocab they are
+    reduced as they are; outside a context, or on a model axis of 1,
+    this is `cross_entropy`."""
+    ctx = pctx.current()
+    if not (is_dtensor(logits) and ctx is not None and ctx.n_model > 1
+            and logits.shape[-1] % ctx.n_model == 0):
+        logits = pctx.constrain(logits, pctx.batch_axes(),
+                                *([None] * (logits.ndim - 1)))
+        return cross_entropy(logits, labels, mask)
+    from repro_torch.parallel.collectives import (axis_index, pmax, psum,
+                                                  shard_map)
+    from repro_torch.parallel.sharding import P
+    mesh, ba = ctx.mesh, ctx.ax.batch
+
+    def body(lg, lab):
+        lg = lg.float()
+        rows = lg.shape[-1]
+        top = pmax(lg.amax(dim=-1), "model", mesh)
+        total = psum(torch.exp(lg - top[..., None]).sum(dim=-1), "model",
+                     mesh)
+        local = lab.long() - axis_index("model", mesh) * rows
+        inside = (local >= 0) & (local < rows)
+        gold = torch.gather(lg, -1, local.clamp(0, rows - 1)[..., None])
+        gold = psum(torch.where(inside, gold[..., 0], 0.0), "model", mesh)
+        return torch.log(total) + top - gold
+
+    nd = (None,) * (labels.ndim - 1)
+    ce = shard_map(body, mesh, (P(ba, *nd, "model"), P(ba, *nd)),
+                   P(ba, *nd))(logits, pctx.replicated(labels))
+    if mask is not None:
+        mask = pctx.replicated(mask)
+        return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce.mean()
 
 
 def train_loss(model: Transformer, dsg: Optional[dict], cfg: ModelConfig,

@@ -71,6 +71,31 @@ def constrain(x, *spec):
     return x.redistribute(ctx.mesh, placements(ctx.mesh, P(*spec)))
 
 
+def replicated(t):
+    """A plain tensor as the replicated DTensor on the active mesh, each
+    rank's own copy taken as the value (no collective): a shard_map body
+    that reads it by a sharded spec slices it locally.  A DTensor, or no
+    context, leaves `t` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    ctx = _CTX
+    if ctx is None or isinstance(t, DTensor) or not torch.is_tensor(t):
+        return t
+    return DTensor.from_local(t, ctx.mesh, [Replicate()] * ctx.mesh.ndim,
+                              run_check=False)
+
+
+def model_sharded(t, dim: int) -> bool:
+    """Whether `t` is a DTensor split over the active context's 'model'
+    axis along `dim`."""
+    from torch.distributed.tensor import DTensor, Shard
+    ctx = _CTX
+    if ctx is None or ctx.n_model == 1 or not isinstance(t, DTensor):
+        return False
+    i = ctx.mesh.mesh_dim_names.index(ctx.ax.model)
+    p = t.placements[i]
+    return isinstance(p, Shard) and p.dim == dim % t.ndim
+
+
 def whole_groups(x, block: int, dim: int = -1):
     """`x` (..., G * block, ...), G groups along `dim`, laid out so that
     no rank holds part of a group: a DTensor whose `dim` is split into

@@ -1,6 +1,8 @@
 """Full-width dry-run cells, on the CPU: `launch.dryrun.run_cell` of
 internlm2-1.8b x train_4k on the single-pod mesh (256 fake ranks), whole,
-its sharded step traced as rank 0 runs it;
+its sharded step traced as rank 0 runs it, its peak under one card's
+80 GB and below the peak of the loss that gathered the logits by at
+least their global buffer;
 and 8d's llava-next-34b x prefill_32k, its layout at full depth against
 the reference's spec arithmetic (params, DSG state, inputs and the
 32k-slot cache) and its step traced at one of its 60 layers (full width,
@@ -13,11 +15,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from test_torch_dryrun import check_cell_bytes  # noqa: E402
 
 # forward + backward of internlm2-1.8b at 256 x 4096, remat included
 INTERNLM2_TRAIN_4K_FLOPS = 16.656e15
+# the cell's traced per-device peak when the sharded loss gathered the
+# vocab-sharded logits over 'model' (its backward then held the
+# microbatch's whole logits on every rank; PERF.md section 6)
+GATHERED_LOSS_PEAK = 247_936_165_388
+DEVICE_BYTES = 80e9               # one H100's memory
 
 
 def _parts(mem) -> int:
@@ -50,6 +58,13 @@ def test_internlm2_train_4k_cell():
         v["bytes"] for v in a["collectives"].values()) > 0
     assert rec["flops"] / 256 <= a["flops"] < rec["flops"]
     assert a["bytes"] is None
+    # the vocab-parallel loss: no rank holds the global logits, a
+    # microbatch's rows x 4096 x vocab in f32, any more
+    cfg = configs.get_config("internlm2-1.8b")
+    logits = 256 // cfg.microbatches * 4096 * cfg.vocab * 4
+    assert logits == 128 * 4096 * 92544 * 4
+    assert GATHERED_LOSS_PEAK - rec["trace_peak_bytes"] >= logits
+    assert rec["trace_peak_bytes"] < DEVICE_BYTES
 
 
 def test_llava_prefill_32k_cell():
