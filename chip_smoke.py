@@ -355,12 +355,30 @@ result line):
             CUDA tensors (MESH_CPU_ONLY), are named on a line of their own:
             they run on gloo CPU ranks only, in the tests.  None of the six
             kernels may launch in the phase.
+28. replicas — phase 20 (d)'s sharded router of 2 replicas (chunk 8,
+            fault tolerance on) as a replica mesh: two gloo rank
+            processes of this script on the one card (`--mesh-rank`),
+            one replica each (`Router(..., mesh=replica_mesh(2))`), after
+            phase 27's memory is freed.  Each rank builds internlm2-1.8b
+            from the seeded generator; the weights' per-leaf sums,
+            gathered over the router's control group, must be equal.
+            Phase 20's 16 skewed requests, fault-free and under
+            kill@1:6: on every rank the merged streams, statuses,
+            retries, dispatch log and steps (and the health events under
+            the fault) must equal phase 20 (d)'s one-process run of the
+            same (recorded there, `replica_run`); each rank one group
+            replay a tick and 24 x 8 x 1 x replays split paged_decode
+            launches, no eager launch of the six kernels and no capture
+            during the run; the kill fired once, on replica 1's rank.
+            Prints the makespans, each rank's ticks, replays and launches
+            and the control group's ms a tick; adds both ranks' launches
+            to the kernels line (`launches_by_phase["replica_mesh"]`).
 Phases 15-18 and 20 each count the kernels' launches from 0, by the graph
 caches for the chunked runs (phase 10's accounting) and by the wrappers'
 counters for the eager one; each must have launched every serve-path
 kernel (phase 20's sharded runs, with DSG serving off, paged decode).
 Phases 10-18 and 20 run after phase 5, in the order 10, 15-18, 11-14, 20;
-then 6-9, 19 and 21-27; each prints its seconds.
+then 6-9, 19 and 21-28; each prints its seconds.
 
 The last line is {"ok": true, "device": {...}}.  It needs no network and
 imports nothing of JAX or of the `repro` package.
@@ -372,10 +390,14 @@ card a rank over NCCL, which phase 27 cannot do on one card (see
 `main_mesh_cards`); one training step's collectives on each rank must
 equal the dry run's record of that step and its peak memory the traced
 peak within PLAN_PEAK_BAND, and `launch.serve.generate(..., mesh=)` on
-four cards must give the one card's greedy stream.
+four cards must give the one card's greedy stream.  It also runs phase
+28 over four ranks with a card each (8 replicas) and a threaded router
+of 4 replicas placed on the four cards, timed against the same router
+on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1418,12 +1440,15 @@ def router_phase(cfg, model, dsg, wrappers) -> dict:
     # (d) sharded, DSG serving off: the decode step runs DSG's masked FFN
     # with a per-row top-k threshold, so a lane's groups are its own (the
     # config's shared threshold, row 0's, couples co-resident lanes)
-    cfg_rows = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+    cfg_rows = replica_cfg(cfg)
     kw_rows = dict(kw, dsg_serving=None)
     want_rows, eng0, _ = one_engine(cfg_rows, model, dsg, kw_rows, traffic())
     del eng0
     for chunk in (1, 8):
+        # fault tolerance at chunk 8 for phase 28's failover reference (it
+        # changes nothing while no replica fails)
         sh = Router(cfg_rows, model, dsg, n_replicas=2, exec_mode="sharded",
+                    fault_tolerance=True if chunk == 8 else None,
                     **dict(kw_rows, decode_chunk=chunk))
         warmup_router(sh, cfg_rows.vocab)
         ex = sh.executor
@@ -1455,6 +1480,19 @@ def router_phase(cfg, model, dsg, wrappers) -> dict:
                  f"{launches['paged_decode']}")
         out[f"sharded_chunk{chunk}"] = dict(st, ticks=ticks["groups"],
                                             replays=replays)
+        if chunk == 8:
+            # phase 28's reference: the one-process group, fault-free and
+            # under kill@1:6
+            ex._group = group
+            out["replica_ref"] = {
+                "run": replica_run(sh, traffic()),
+                "failover": replica_run(sh, traffic(), [REPLICA_FAULT])}
+            ref = out["replica_ref"]
+            retries = sum(r for _, r in ref["failover"]["status"].values())
+            show(f"[router sharded chunk 8] phase 28's reference: makespan "
+                 f"{ref['run']['makespan']:.3f} s, {ref['run']['ticks']} "
+                 f"ticks; under kill@{REPLICA_FAULT[0]}:{REPLICA_FAULT[1]} "
+                 f"health {ref['failover']['health']}, retries {retries}")
         del sh, ex
     try:
         Router(cfg, model, dsg, n_replicas=2, exec_mode="sharded", **kw)
@@ -3404,8 +3442,10 @@ MESH_CPU_ONLY = (
 
 
 def mesh_spawn(part: str, n: int, tmp: Path, spec: dict) -> list:
-    """Run phase-27 part `part` in n rank processes of this script (a gloo
-    group meeting at a FileStore in tmp); returns each rank's result."""
+    """Run mesh part `part` (phases 27-28, `--mesh-cards`) in n rank
+    processes of this script (a group, gloo unless `spec` names another
+    backend, meeting at a FileStore in tmp); returns each rank's
+    result."""
     import torch
     (tmp / f"{part}.json").write_text(json.dumps(spec))
     procs = [subprocess.Popen(
@@ -3425,14 +3465,14 @@ def mesh_spawn(part: str, n: int, tmp: Path, spec: dict) -> list:
                 p.communicate()
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            fail(f"phase 27 part {part}: rank {r} exited {p.returncode}:\n"
+            fail(f"mesh part {part}: rank {r} exited {p.returncode}:\n"
                  f"{err[-3000:]}")
     return [torch.load(tmp / f"{part}_{r}.pt", weights_only=False)
             for r in range(n)]
 
 
 def mesh_worker(argv) -> int:
-    """One rank of a phase-27 part (a process this script starts)."""
+    """One rank of a mesh part (a process this script starts)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3459,11 +3499,7 @@ def mesh_worker(argv) -> int:
 
 def mesh_launches() -> dict:
     """The six kernels' wrappers' launch counts in this process."""
-    from repro_torch.kernels import dsg_ffn, flash_attention
-    kernels = dict({n: k[0] for n, k in serve_kernels().items()},
-                   dsg_ffn=dsg_ffn.dsg_ffn,
-                   flash_attention=flash_attention.flash_attention)
-    return {n: getattr(w, "launches", 0) for n, w in kernels.items()}
+    return {n: getattr(w, "launches", 0) for n, w in six_kernels().items()}
 
 
 def mesh_cfg(arch: str, spec: dict):
@@ -4252,6 +4288,246 @@ MESH_PARTS.update(tp_train=mesh_tp_train, ep_prefill=mesh_ep_prefill,
                   remesh=mesh_remesh, generate=mesh_generate)
 
 
+# -- phase 28: serving replicas across ranks ---------------------------------
+
+# phase 20 (d)'s engines: paged, page 16, 4 slots, chunk 8, DSG serving off
+REPLICA_KW = dict(n_slots=4, max_seq=512, prompt_bucket=256,
+                  cache_backend="paged", page_size=16, decode_chunk=8)
+REPLICA_FAULT = (1, 6)             # kill@1:6: replica 1 at its step 6
+
+
+def replica_cfg(cfg):
+    """Phase 20 (d)'s config: DSG in mask mode with a per-row top-k
+    threshold, so that a lane's groups are its own."""
+    return cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+
+
+def six_kernels() -> dict:
+    """The six kernels' wrappers, by name."""
+    from repro_torch.kernels import dsg_ffn, flash_attention
+    return dict({n: k[0] for n, k in serve_kernels().items()},
+                dsg_ffn=dsg_ffn.dsg_ffn,
+                flash_attention=flash_attention.flash_attention)
+
+
+def replica_run(router, requests, faults=()) -> dict:
+    """Serve `requests` through a warmed sharded router (one process, or
+    this rank's part of a replica mesh, where every rank calls it) from a
+    clean slate: the engines' results and counters, the graph replays,
+    the router's counters and health, the control group's clock and the
+    six kernels' counters, set to 0 just before the run and read just
+    after.  `faults` are (replica, step) kills.  Returns the streams,
+    statuses and retries, dispatch log, steps, health events, makespan,
+    this process's group ticks and replays, its replayed split
+    paged_decode launches, the wrappers' own (eager) launches, the
+    control group's seconds and commands, the faults that fired here and
+    whether the run captured a graph."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.runtime.fault_tolerance import (ReplicaFault,
+                                                     ServingFaultInjector)
+    ex = router.executor
+    for e in router.engines:
+        e.done.clear()
+        e.steps = e.admissions = e.refresh_steps = 0
+        e.decode_seconds, e.decode_tokens = 0.0, 0
+    graphs = ex.graphs
+    keys = set(graphs.graphs) if graphs is not None else set()
+    if graphs is not None:
+        graphs.replays.clear()
+    router.reset_counters()
+    router.reset_health()
+    control = getattr(ex, "control", None)
+    if control is not None:
+        control.seconds = 0.0
+        control.ops.clear()
+    injector = None
+    if faults:
+        injector = ServingFaultInjector([ReplicaFault(*f) for f in faults])
+        injector.attach(router.engines)
+    wrappers = six_kernels()
+    for w in wrappers.values():
+        for name in [n for n in vars(w) if n.startswith("launches")]:
+            setattr(w, name, 0)
+    ticks = [0]
+    before = vars(ex).get("_group")
+    group = ex._group
+
+    def counted(*a):
+        ticks[0] += 1
+        return group(*a)
+    ex._group = counted
+    for r in requests:
+        router.submit(r)
+    t0 = time.perf_counter()
+    try:
+        done = router.run()
+        if ex.device.type == "cuda":
+            torch.cuda.synchronize(ex.device)
+    finally:
+        if before is None:
+            del ex._group
+        else:
+            ex._group = before
+        if injector is not None:
+            injector.detach(router.engines)
+    wall = time.perf_counter() - t0
+    replays = (sum(graphs.replays.values()) if graphs is not None
+               else ticks[0])
+    split = (graphs.launches(paged_attention.paged_decode, "launches_split")
+             if graphs is not None else None)
+    return {"streams": {u: list(r.output) for u, r in done.items()},
+            "status": {u: (r.status, r.retries) for u, r in done.items()},
+            "log": list(router.dispatch_log), "steps": router.steps,
+            "health": [[list(e[:2]) for e in h.events]
+                       for h in router.health],
+            "makespan": router.makespan_seconds(), "wall": wall,
+            "local": list(ex.local), "ticks": ticks[0], "replays": replays,
+            "split": split,
+            "eager": mesh_launches(),
+            "control_s": control.seconds if control is not None else 0.0,
+            "ops": dict(control.ops) if control is not None else {},
+            "fired": injector.log if injector is not None else [],
+            "captured": (graphs is not None
+                         and set(graphs.graphs) != keys)}
+
+
+def weight_sums(model, dsg) -> list:
+    """One f64 sum a leaf of the weights and the DSG state: equal on two
+    ranks only if every leaf is."""
+    leaves = list(model.parameters()) + [
+        v for v in (dsg or {}).values() if hasattr(v, "double")]
+    return [float(t.double().sum()) for t in leaves]
+
+
+def mesh_replicas(rank, dev, spec) -> dict:
+    """One rank of phase 28 (or of `--mesh-cards` (e)): internlm2-1.8b
+    from the seeded generator on this rank's device, the weights' sums
+    gathered over the control group, a warmed sharded Router over a
+    replica mesh of every rank (`spec["replicas"]` replicas), then phase
+    20's 16 skewed requests fault-free and under kill@1:6."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import replica_mesh
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.workload import skewed_requests, warmup_router
+    from torch import distributed as dist
+    cfg = mesh_cfg(ARCH, spec)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    router = Router(replica_cfg(cfg), model, dsg,
+                    n_replicas=spec["replicas"], exec_mode="sharded",
+                    mesh=replica_mesh(dist.get_world_size(), dev.type),
+                    fault_tolerance=True, **REPLICA_KW)
+    sums = router.executor.control.all_gather(weight_sums(model, dsg))
+    warmup_router(router, cfg.vocab)
+    warm_s = time.perf_counter() - t0
+
+    def traffic():
+        return skewed_requests(cfg.vocab, 16, period=2, seed=SEED)
+    fault = tuple(spec.get("fault", REPLICA_FAULT))
+    out = {"sums_equal": all(x == sums[0] for x in sums),
+           "warm_s": warm_s, "run": replica_run(router, traffic()),
+           "failover": replica_run(router, traffic(), [fault])}
+    if dev.type == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+MESH_PARTS.update(replicas=mesh_replicas)
+
+
+def replica_checks(tag, ranks, ref, n_layers, chunk,
+                   fault=REPLICA_FAULT) -> dict:
+    """Hold a replica mesh's ranks to the one-process sharded router's
+    runs `ref` (fault-free and under kill@1:6): the weights' sums equal on
+    every rank; on every rank the merged streams, statuses and retries,
+    dispatch log and steps, and under the fault the health events, the
+    one process's; one group replay a tick and `n_layers x chunk x the
+    rank's replicas x replays` split paged_decode launches on each rank,
+    no eager launch of the six kernels and no capture in the run; the
+    fault (`fault`, a kill) fired once, on its replica's owner.  Prints
+    the makespans, each rank's ticks and replays and the control group's
+    ms a tick."""
+    rows = []
+    for k, r in enumerate(ranks):
+        if not r["sums_equal"]:
+            fail(f"{tag}: the ranks' weights differ (rank {k}'s gather)")
+        for part in ("run", "failover"):
+            got, want = r[part], ref[part]
+            keys = ("streams", "status", "log", "steps") + (
+                ("health",) if part == "failover" else ())
+            off = [key for key in keys if got[key] != want[key]]
+            if off or any(s != "ok" for s, _ in got["status"].values()):
+                fail(f"{tag} {part}: rank {k}'s {off} differ from the "
+                     f"one-process router's: {[got[x] for x in off]} "
+                     f"against {[want[x] for x in off]}")
+            want_split = n_layers * chunk * len(got["local"]) * got["replays"]
+            if got["split"] is not None and (
+                    got["replays"] != got["ticks"] or not got["replays"]
+                    or got["split"] != want_split):
+                fail(f"{tag} {part}: rank {k} replayed {got['replays']} "
+                     f"times in {got['ticks']} ticks with {got['split']} "
+                     f"split paged_decode launches, expected one replay a "
+                     f"tick and {want_split}")
+            if any(got["eager"].values()) or got["captured"]:
+                fail(f"{tag} {part}: rank {k} launched {got['eager']} "
+                     f"eagerly or captured a graph in the run")
+            rows.append({"rank": k, "part": part, "local": got["local"],
+                         "ticks": got["ticks"], "replays": got["replays"],
+                         "split": got["split"], "makespan": got["makespan"],
+                         "control_ms_a_tick": 1e3 * got["control_s"]
+                         / max(got["ops"].get("tick", 0), 1),
+                         "ops": got["ops"]})
+    fired = [r["failover"]["fired"] for r in ranks]
+    if sum(len(f) for f in fired) != 1:
+        fail(f"{tag}: kill@{fault[0]}:{fault[1]} fired {fired} across the "
+             f"ranks, not once")
+    for part in ("run", "failover"):
+        mine = [x for x in rows if x["part"] == part]
+        retries = sum(n for _, n in ranks[0][part]["status"].values())
+        print(f"[replicas {tag}] {part}: {len(ranks)} ranks x "
+              f"{len(mine[0]['local'])} replicas, 16 of 16 ok, streams, "
+              f"dispatch log and {ranks[0][part]['steps']} steps equal the "
+              f"one-process router's (retries {retries}, health "
+              f"{ranks[0][part]['health']}); measured makespan "
+              f"{mine[0]['makespan']:.3f} s against the one process's "
+              f"{ref[part]['makespan']:.3f} s; ticks / replays / split "
+              f"paged_decode launches by rank "
+              f"{[(x['ticks'], x['replays'], x['split']) for x in mine]}; "
+              f"control group ms a tick "
+              f"{[round(x['control_ms_a_tick'], 3) for x in mine]}, "
+              f"commands {mine[0]['ops']}", flush=True)
+    return {"rows": rows, "fired": fired,
+            "split": sum(r["run"]["split"] or 0 for r in ranks),
+            "warm_s": [r["warm_s"] for r in ranks],
+            "peak": [r.get("peak") for r in ranks]}
+
+
+def replica_phase(dev, ref, spec=None) -> dict:
+    """Phase 28: phase 20 (d)'s sharded router of 2 replicas as a replica
+    mesh of two gloo rank processes on this device, one replica a rank
+    (see the module docstring).  `ref` is phase 20 (d)'s one-process run
+    at chunk 8, fault-free and under kill@1:6."""
+    import shutil
+    import tempfile
+    spec = dict({"device": dev.type, "replicas": 2}, **(spec or {}))
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        t0 = time.perf_counter()
+        ranks = mesh_spawn("replicas", 2, tmp, spec)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = mesh_cfg(ARCH, spec)
+    out = replica_checks("2 gloo ranks, one card", ranks, ref, cfg.n_layers,
+                         REPLICA_KW["decode_chunk"])
+    out["spawn_s"] = spawn_s
+    return out
+
+
 def argmax_held(got, want, tol: float) -> tuple:
     """(rows whose top-2 margin in `want` exceeds 2 x tol, of them the
     rows whose argmax `got` keeps)."""
@@ -4259,6 +4535,183 @@ def argmax_held(got, want, tol: float) -> tuple:
     clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
     same = got.argmax(-1) == want.argmax(-1)
     return int(clear.sum()), int((same & clear).sum())
+
+
+CARDS_REPLICAS = 8                 # (e): 8 replicas, a block of 2 a card
+
+
+def cards_replicas(dev, tmp, spec) -> dict:
+    """`--mesh-cards` (e): phase 28 over four ranks with a card each (an
+    NCCL group; the control group is gloo), 8 replicas, a block of two a
+    rank, against the one-process sharded router of 8 replicas on card 0,
+    fault-free and under kill@1:6."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.workload import skewed_requests, warmup_router
+    cfg = mesh_cfg(ARCH, spec)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+    one = Router(replica_cfg(cfg), model, dsg, n_replicas=CARDS_REPLICAS,
+                 exec_mode="sharded", fault_tolerance=True, **REPLICA_KW)
+    warmup_router(one, cfg.vocab)
+
+    def traffic():
+        return skewed_requests(cfg.vocab, 16, period=2, seed=SEED)
+    ref = {"run": replica_run(one, traffic())}
+    # the kill lands on the busiest replica outside rank 0's block, at
+    # its step 6: with 8 replicas, replica 1 may never reach step 6
+    busy = [e.steps for e in one.engines]
+    victim = max(range(2, CARDS_REPLICAS), key=lambda i: busy[i])
+    fault = (victim, min(REPLICA_FAULT[1], busy[victim] // 2))
+    ref["failover"] = replica_run(one, traffic(), [fault])
+    del one, model, dsg
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_spawn("replicas", 4, tmp,
+                       dict(spec, replicas=CARDS_REPLICAS, fault=fault))
+    spawn_s = time.perf_counter() - t0
+    out = replica_checks("4 cards", ranks, ref, cfg.n_layers,
+                         REPLICA_KW["decode_chunk"], fault)
+    out.update(spawn_s=spawn_s, fault=fault,
+               one_process_split=ref["run"]["split"],
+               streams=ref["run"]["streams"])
+    return out
+
+
+def sync_cards(dev, count: int) -> None:
+    """Wait for every card's work (nothing to wait for off CUDA)."""
+    import torch
+    if dev.type == "cuda":
+        for d in range(count):
+            torch.cuda.synchronize(d)
+
+
+def cards_threaded(dev, spec) -> dict:
+    """`--mesh-cards` (f): a threaded Router of 4 replicas in this process
+    over the four cards (the router copies the model and the DSG state to
+    card r % 4 for replica r), phase 20 (d)'s engines and traffic: the
+    streams must equal one engine's on card 0, every replica's engine and
+    graphs on its own card, and a profiled run must show split paged
+    kernels on each card.  Then the same router with every replica on
+    card 0 (`models=`) and the spread one serve the traffic in turn
+    (spread, card 0, card 0, spread), and their makespans are printed
+    side by side (the streams must equal one engine's).  Also prints
+    whether entering
+    `torch.cuda.stream` of another card's stream makes that card current
+    on this torch, and checks that a launch's stream argument for
+    operands on card 1 raises while card 0 is current."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import api
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.workload import (skewed_requests, warmup_engine,
+                                              warmup_router)
+    cfg = replica_cfg(mesh_cfg(ARCH, spec))
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    probe = None
+    if count > 1:
+        with torch.cuda.device(0):
+            with torch.cuda.stream(torch.cuda.Stream(device=1)):
+                probe = torch.cuda.current_device()
+            try:
+                cuda_lib.stream(torch.device("cuda", 1))
+            except RuntimeError as e:
+                raised = str(e)
+            else:
+                fail("a launch for operands on cuda:1 while cuda:0 is "
+                     "current did not raise")
+        print(f"[cards] (f) inside torch.cuda.stream(a stream of cuda:1) "
+              f"with cuda:0 current, torch.cuda.current_device() is "
+              f"{probe}; a launch's stream argument for cuda:1 operands "
+              f"with cuda:0 current raises (the wrappers launch inside "
+              f"their operands' torch.cuda.device): {raised}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = api.init_model(cfg, generator=gen, device=dev)
+    dsg = api.init_dsg(model, cfg, generator=gen, device=dev)
+
+    def traffic():
+        return skewed_requests(cfg.vocab, 16, period=2, seed=SEED)
+    from repro_torch.serving.scheduler import ServingEngine
+    eng = ServingEngine(cfg, model, dsg, **REPLICA_KW)
+    warmup_engine(eng, cfg.vocab)
+    for r in traffic():
+        eng.submit(r)
+    want = {u: list(r.output) for u, r in eng.run().items()}
+    del eng
+    router = Router(cfg, model, dsg, n_replicas=4, exec_mode="threaded",
+                    **REPLICA_KW)
+    devices = [str(e.device) for e in router.engines]
+    warmup_router(router, cfg.vocab)
+
+    def serve(router, prof=None) -> dict:
+        for e in router.engines:
+            e.done.clear()
+            if e.graphs is not None:
+                e.graphs.replays.clear()
+        router.reset_counters()
+        for r in traffic():
+            router.submit(r)
+        t0 = time.perf_counter()
+        with prof or contextlib.nullcontext():
+            done = router.run()
+            sync_cards(dev, count)
+        return {"makespan": router.makespan_seconds(),
+                "wall": time.perf_counter() - t0,
+                "same": sum(list(r.output) == want[u]
+                            for u, r in done.items()),
+                "replays": [sum(e.graphs.replays.values())
+                            if e.graphs is not None else None
+                            for e in router.engines],
+                "log": list(router.dispatch_log)}
+    prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    runs = [serve(router), serve(router, prof)]
+    # the same router with every replica on card 0 (`models=`), timed
+    # against the spread one in turn: spread, card 0, card 0, spread
+    pinned = Router(cfg, model, dsg, n_replicas=4, exec_mode="threaded",
+                    models=[model] * 4, **REPLICA_KW)
+    warmup_router(pinned, cfg.vocab)
+    ab = [(where, serve(r)) for where, r in (
+        ("4 cards", router), ("card 0", pinned), ("card 0", pinned),
+        ("4 cards", router))]
+    pinned.close()
+    router.close()
+    by_card = Counter()
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CUDA") and \
+                ev.name.startswith("void (anonymous namespace)::paged_split"):
+            by_card[ev.device_index] += 1
+    graph_cards = [str(e.graphs.device) if e.graphs is not None else None
+                   for e in router.engines]
+    print(f"[cards] (f) threaded Router of 4 replicas on {devices} (graphs "
+          f"on {graph_cards}): {[r['same'] for r in runs]} of 16 streams "
+          f"equal one engine's on card 0; measured makespan "
+          f"{[round(r['makespan'], 3) for r in runs]} s (plain, profiled); "
+          f"replays by replica {[r['replays'] for r in runs]}; split paged "
+          f"kernels in the profiled run by card {dict(by_card)}",
+          flush=True)
+    spans = {where: [round(r["makespan"], 3) for w, r in ab if w == where]
+             for where in ("4 cards", "card 0")}
+    print(f"[cards] (f) the same threaded router, its 4 replicas on the 4 "
+          f"cards against all on card 0, in turn (spread, card 0, card 0, "
+          f"spread): measured makespan {spans} s; {[r['same'] for _, r in ab]}"
+          f" of 16 streams equal one engine's", flush=True)
+    if any(r["same"] != 16 for r in runs + [r for _, r in ab]):
+        fail(f"the threaded router across cards changed a stream: "
+             f"{runs}, {ab}")
+    if count > 1 and (devices != [f"cuda:{r % count}" for r in range(4)]
+                      or graph_cards != devices
+                      or sorted(by_card) != list(range(min(4, count)))):
+        fail(f"a replica ran off its card: engines {devices}, graphs "
+             f"{graph_cards}, paged kernels by card {dict(by_card)}")
+    return {"devices": devices, "runs": runs, "paged_by_card": dict(by_card),
+            "stream_switches_device": probe,
+            "one_card_ab": [(where, r["makespan"]) for where, r in ab]}
 
 
 def mesh_cards_phase(dev, spec=None) -> dict:
@@ -4275,6 +4728,8 @@ def mesh_cards_phase(dev, spec=None) -> dict:
     out = {}
     tmp = Path(tempfile.mkdtemp())
     try:
+        out["replicas"] = cards_replicas(dev, tmp, spec)
+        out["threaded"] = cards_threaded(dev, spec)
         # (a) internlm2-1.8b trained on (data 1, model 2), 2 cards
         t0 = time.perf_counter()
         traced = {mode: traced_tp_train(spec, mode, dev)
@@ -4484,8 +4939,13 @@ def main_mesh_cards() -> int:
     same config, batch and mesh, on rank 0 of a 2-rank fake group), and
     each rank's max_memory_allocated over the step must be the traced
     per-device peak within PLAN_PEAK_BAND; the step's p50 is printed
-    beside CARDS_PROPAGATED_MS.  Prints the card line and
-    `{"ok": true}`."""
+    beside CARDS_PROPAGATED_MS.  (e) phase 28 on four ranks with a card
+    each, 8 replicas (a block of two a rank), against the one-process
+    sharded router of 8 replicas on card 0, fault-free and under a kill
+    of its busiest replica outside rank 0's block (`cards_replicas`);
+    (f) a threaded Router of 4 replicas placed on the four cards, timed
+    against the same router on card 0 (`cards_threaded`).  Prints the
+    card line and `{"ok": true}`."""
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if torch.cuda.device_count() < 4:
@@ -4495,6 +4955,9 @@ def main_mesh_cards() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
+    from repro_torch.kernels import cuda_lib
+    lib, build_s = cuda_lib.build()
+    print(f"[build] {lib.name} in {build_s:.2f}s", flush=True)
     t0 = time.perf_counter()
     out = mesh_cards_phase(torch.device("cuda"))
     print("[cards] stats " + json.dumps(out, default=str), flush=True)
@@ -5364,6 +5827,17 @@ def main() -> int:
     meshed = mesh_phase(dev)
     print("[mesh] stats " + json.dumps(meshed, default=str), flush=True)
     print(f"[phase 27] {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # 28. phase 20 (d)'s replicas as a replica mesh of two rank processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replicas = replica_phase(dev, router_out["replica_ref"])
+    by_name["paged_decode"]["launches_by_phase"]["replica_mesh"] = \
+        replicas["split"]
+    print("[replicas] stats " + json.dumps(replicas, default=str),
+          flush=True)
+    print(f"[phase 28] {time.perf_counter() - t0:.2f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -198,7 +198,18 @@ def count(wrapper, path: str) -> None:
 
 def stream(device: torch.device) -> int:
     """PyTorch's current stream on `device`, read at call time, so a launch
-    follows the caller's stream (and a CUDA graph's capture stream)."""
+    follows the caller's stream (and a CUDA graph's capture stream).
+    Raises unless `device` is the calling thread's current device: the
+    entry points set kernel attributes and launch through the CUDA
+    runtime, which acts on the current device, so a launch for operands
+    on another card would run on the wrong one.  Every wrapper launches
+    inside `torch.cuda.device` of its operands; this holds it to that."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel for operands on {device} was launched while "
+            f"cuda:{current} is this thread's current device: make the "
+            f"operands' card current first (torch.cuda.device)")
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -55,8 +55,10 @@ def axes_for_mesh(mesh) -> Axes:
 def replica_mesh(n_replicas: int, device_type: str = "cuda"):
     """1-axis `replicas` mesh over the first `n_replicas` ranks of the
     default process group, for data-parallel serving replica groups.  The
-    sharded replica executor does not take a mesh yet (ROADMAP.md queue 1
-    item 9c); this builds one."""
+    sharded replica executor (serving/parallel_exec.py) runs each rank's
+    block of the group (`replica_block`) on that rank's device, so each
+    replica lives and computes where `P('replicas')` would lay its slice
+    of a stacked group."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch import distributed as dist
     have = dist.get_world_size()
@@ -65,6 +67,32 @@ def replica_mesh(n_replicas: int, device_type: str = "cuda"):
                          f"have {have}")
     return DeviceMesh(device_type, torch.arange(n_replicas),
                       mesh_dim_names=("replicas",))
+
+
+def replica_blocks(mesh, n_replicas: int) -> list:
+    """The replica indices each coordinate of `mesh`'s `replicas` axis
+    owns: coordinate k holds the contiguous block [k n/m, (k+1) n/m), the
+    block `P('replicas')` gives device k of a group stacked along a
+    leading replica axis.  Raises ValueError, worded as the reference's
+    sharded executor, for a mesh without the axis or an axis size that
+    does not divide `n_replicas`."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "replicas" not in names:
+        raise ValueError(
+            "sharded executor needs a mesh with a 'replicas' axis "
+            f"(parallel.sharding.replica_mesh), got axes {names}")
+    m = mesh_sizes(mesh)["replicas"]
+    if n_replicas % m:
+        raise ValueError(f"{n_replicas} replicas do not divide the mesh's "
+                         f"replicas axis ({m})")
+    per = n_replicas // m
+    return [range(k * per, (k + 1) * per) for k in range(m)]
+
+
+def replica_block(mesh, n_replicas: int) -> range:
+    """The block of replica indices this rank owns on `mesh`
+    (`replica_blocks`)."""
+    return replica_blocks(mesh, n_replicas)[mesh.get_local_rank("replicas")]
 
 
 def replica_stack_spec() -> P:

@@ -22,8 +22,13 @@ Requests a policy declines to place wait in the router's FIFO queue and are
 offered again every step; policies never reorder the queue.
 
 On one card every replica shares the caller's model tensors: one copy of
-the weights, however many replicas (the reference places replicas on
-devices when there are several; one card has no counterpart to that).
+the weights, however many replicas.  `models=` gives each replica its
+own model (the reference's `param_views`), and under the threaded
+executor, with a model on CUDA and several cards, replica r runs on a
+copy of the model and the DSG state on card r % count, as the reference
+places replicas on its local devices.  With the sharded executor and a
+`replicas` mesh (`mesh=`), each rank of the process group runs its block
+of the replicas and rank 0 routes (serving/parallel_exec.py).
 
 Determinism: a lane's greedy stream does not depend on its lane or its
 co-resident lanes, so the merged results keyed by uid are the same for any
@@ -46,11 +51,15 @@ it a failure re-raises.
 from __future__ import annotations
 
 import collections
+import copy
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
+
+import torch
 
 from repro_torch.analysis.contracts import owned_by, runs_on
+from repro_torch.parallel import sharding
 from repro_torch.serving.parallel_exec import (EXEC_MODES, ReplicaFailure,
                                                get_executor)
 from repro_torch.serving.scheduler import Request, ServingEngine
@@ -203,6 +212,50 @@ def get_policy(name: Union[str, RoutePolicy]) -> RoutePolicy:
                      f"expected one of {POLICIES}")
 
 
+def to_device(tree, device: torch.device):
+    """A (nested dict of) tensor(s) on `device`; None and non-tensor leaves
+    stay, and a tensor already there is not copied."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def model_copy(model, device: torch.device):
+    """A copy of `model` with every parameter and buffer on `device`, made
+    tensor by tensor (the source's card never holds a second copy); the
+    model itself when it is there already."""
+    if model.embed.device == device:
+        return model
+    memo = {}
+    for p in model.parameters():
+        memo[id(p)] = torch.nn.Parameter(p.detach().to(device),
+                                         requires_grad=p.requires_grad)
+    for b in model.buffers():
+        memo[id(b)] = b.to(device)
+    return copy.deepcopy(model, memo)
+
+
+def replica_views(model, dsg, models, owned) -> dict:
+    """{replica: (model, dsg)} for the replicas in `owned`: the caller's
+    pair when `models` is None; else each replica's entry of `models` (a
+    model, or a device to copy the caller's model to) with the DSG state
+    on its device.  Copies are made once a device."""
+    if models is None:
+        return {r: (model, dsg) for r in owned}
+    dsg_on, copies, out = {model.embed.device: dsg}, {}, {}
+    for r in owned:
+        m = models[r]
+        if isinstance(m, torch.device):
+            if m not in copies:
+                copies[m] = model_copy(model, m)
+            m = copies[m]
+        dev = m.embed.device
+        if dev not in dsg_on:
+            dsg_on[dev] = to_device(dsg, dev)
+        out[r] = (m, dsg_on[dev])
+    return out
+
+
 @owned_by("router", "queue", "dispatch_log", "steps", "health", "failed",
           "fail_log")
 class Router:
@@ -212,14 +265,26 @@ class Router:
     `prompt_bucket`, `admission`, `cache_backend`, `page_size`,
     `cache_tokens`, `dsg_serving`, `decode_chunk`, ...).  `cache_backend`
     must be a name: a backend instance manages one live handle, so each
-    replica builds its own.  Every replica shares the caller's model: one
-    card holds one copy of the weights.
+    replica builds its own.  Every replica shares the caller's model (one
+    card holds one copy of the weights) unless `models` gives one model
+    a replica, each run on its own device with the DSG state moved there;
+    under "threaded", with no `models`, a model on CUDA and more than one
+    card, replica r gets a copy of the model and of the DSG state on card
+    r % count (one copy a card).
 
     `exec_mode` picks how the group runs (serving/parallel_exec.py):
     "sequential" (default, modeled makespan), "threaded" or "sharded"
-    (measured makespan).  `fault_tolerance` (None | True | dict |
-    FaultToleranceConfig) opts into health tracking, restart budgets,
-    failover replay from the prompt, deadlines and retries.
+    (measured makespan).  `mesh` (a `replicas` mesh,
+    `parallel.sharding.replica_mesh`) spans a sharded group over the
+    ranks of the process group: every rank builds the router with the
+    same arguments and calls `run()` together; each runs the engines of
+    its block only, rank 0 alone routes (its submissions are the ones
+    served; the other ranks' are dropped at each run), and at the end
+    every rank holds rank 0's results, dispatch log, steps and health.
+    The other executors ignore a mesh, as the reference's do.
+    `fault_tolerance` (None | True | dict | FaultToleranceConfig) opts
+    into health tracking, restart budgets, failover replay from the
+    prompt, deadlines and retries.
 
         router = Router(cfg, model, dsg, n_replicas=2,
                         policy="least_queue", n_slots=4)
@@ -229,7 +294,8 @@ class Router:
 
     def __init__(self, cfg, model, dsg, *, n_replicas: int = 1,
                  policy: Union[str, RoutePolicy] = "least_queue",
-                 seed: int = 0, exec_mode: str = "sequential", mesh=None,
+                 models: Optional[Sequence] = None, seed: int = 0,
+                 exec_mode: str = "sequential", mesh=None,
                  fault_tolerance=None, **engine_kw):
         if n_replicas < 1:
             raise ValueError("router needs at least one replica")
@@ -237,15 +303,30 @@ class Router:
             raise ValueError(
                 "pass cache_backend by name: backend instances manage one "
                 "live handle and cannot be shared across replicas")
+        if models is not None and len(models) != n_replicas:
+            raise ValueError(f"models must supply one model per replica "
+                             f"({n_replicas})")
         if exec_mode not in EXEC_MODES:
             # checked before the engines are built
             raise ValueError(f"unknown exec mode {exec_mode!r}; "
                              f"expected one of {EXEC_MODES}")
         self.policy = get_policy(policy)
-        self.engines: List[ServingEngine] = [
-            ServingEngine(cfg, model, dsg, seed=seed + r, **engine_kw)
-            for r in range(n_replicas)]
-        self.executor = get_executor(exec_mode, self.engines, mesh=mesh)
+        owned = range(n_replicas)
+        if mesh is not None and exec_mode == "sharded":
+            owned = sharding.replica_block(mesh, n_replicas)
+        if (models is None and exec_mode == "threaded"
+                and model.embed.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            count = torch.cuda.device_count()
+            models = [torch.device("cuda", r % count)
+                      for r in range(n_replicas)]
+        views = replica_views(model, dsg, models, owned)
+        engines = [ServingEngine(cfg, *views[r], seed=seed + r, **engine_kw)
+                   if r in owned else None for r in range(n_replicas)]
+        self.executor = get_executor(exec_mode, engines, mesh=mesh)
+        # the executor's engines: on a replica mesh, this rank's block and
+        # a RemoteReplica for every other replica
+        self.engines: List[ServingEngine] = self.executor.engines
         # what policies see and dispatch to: the executor's proxies
         self.replicas = self.executor.proxies
         self.queue: collections.deque = collections.deque()
@@ -286,12 +367,22 @@ class Router:
     def step(self):
         """One lockstep tick: dispatch what the policy places, then have the
         executor advance every replica that has work one step.  A
-        free-running executor has no tick: drive it with run()/drain()."""
+        free-running executor has no tick, and a replica mesh ticks on
+        every rank at once: drive them with run()/drain()."""
         if not self.executor.lockstep:
             raise RuntimeError(
                 f"executor {self.executor.name!r} free-runs replicas from "
                 f"worker threads; drive it with run() or drain(), not "
                 f"step()")
+        if self.executor.collective:
+            raise RuntimeError(
+                "a router over a replica mesh ticks on every rank at once; "
+                "call run() or drain() on every rank, not step()")
+        self._tick()
+
+    @runs_on("router")
+    def _tick(self):
+        """step()'s body (a replica mesh's rank 0 ticks through it)."""
         self._expire_deadlines()
         self._dispatch()
         active = [i for i, eng in enumerate(self.engines)
@@ -452,12 +543,31 @@ class Router:
         """Drive every submitted request to completion and return the
         merged {uid: Request}: lockstep executors tick through step(),
         free-running ones own the loop (`executor.drive()`)."""
-        if self.executor.lockstep:
+        if self.executor.collective:
+            self.executor.drive(self, max_steps)
+        elif self.executor.lockstep:
             while self._busy() and self.steps < max_steps:
                 self.step()
         elif self._busy():
             self.executor.drive(self, max_steps)
         return self.done()
+
+    def _export(self) -> dict:
+        """The router's results and bookkeeping, as rank 0 of a replica
+        mesh sends them to the other ranks at the end of a run."""
+        return {"failed": self.failed, "queue": list(self.queue),
+                "dispatch_log": self.dispatch_log, "steps": self.steps,
+                "health": self.health, "fail_log": self.fail_log}
+
+    @runs_on("router")
+    def _adopt(self, state: dict) -> None:
+        """Take rank 0's `_export()` (the other ranks of a replica mesh)."""
+        self.failed = state["failed"]
+        self.queue = collections.deque(state["queue"])
+        self.dispatch_log = state["dispatch_log"]
+        self.steps = state["steps"]
+        self.health = state["health"]
+        self.fail_log = state["fail_log"]
 
     def drain(self, max_steps: int = 10_000) -> Dict[int, Request]:
         """Finish every in-flight and queued request (no new submissions

@@ -445,6 +445,21 @@ class ServingEngine:
     def busy_slots(self) -> int:
         return self.n_slots - self.free_slots()
 
+    def has_work(self) -> bool:
+        """Whether a request is queued or resident: the busy predicate the
+        router and every executor share."""
+        return bool(self.queue) or any(not s.free for s in self.slots)
+
+    def introspect(self) -> dict:
+        """Every counter a route policy reads but the admission check
+        (which depends on the request): what a replica mesh's owner
+        reports to the router after each command."""
+        return {"queue_depth": self.queue_depth(),
+                "free_slots": self.free_slots(),
+                "busy_slots": self.busy_slots(),
+                "free_pages": self.free_pages(),
+                "has_work": self.has_work()}
+
     def free_pages(self) -> int:
         """Unreserved free pages of the paged backend's allocator.  A dense
         engine's free lanes each own a max_seq stripe, counted in pages of

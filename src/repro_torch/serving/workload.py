@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.fault_tolerance import ServingFaultInjector
+from repro_torch.serving.parallel_exec import on_device
 from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import Request, ServingEngine
 
@@ -271,45 +272,48 @@ def warmup_engine(eng: ServingEngine, vocab: int, warm_temp: float = 0.0,
     kernels' launch counters are the caller's to reset."""
     if requests is not None:
         warm_temp = warm_temp_for(requests, warm_temp)
-    rng = np.random.default_rng(12345)
-    for i, b in enumerate(eng.buckets):
-        eng.submit(Request(uid=-1 - i,
-                           prompt=rng.integers(0, vocab, b, dtype=np.int32),
-                           max_new=2, temperature=warm_temp))
-    if warm_temp > 0:
-        eng.submit(Request(uid=-1 - len(eng.buckets),
-                           prompt=rng.integers(0, vocab, eng.buckets[0],
-                                               dtype=np.int32),
-                           max_new=2))
-    eng.run(max_steps=max_steps)
-    eng.warm_decode(sample=warm_temp > 0)
-    eng.done.clear()
-    # the admission draws too, so that sampled streams after the warm-up
-    # are a fresh engine's
-    eng.steps = eng.admissions = eng.refresh_steps = eng._draws = 0
-    eng.decode_seconds = 0.0
-    eng.decode_tokens = 0
-    eng.prefill_cache_hits = 0
-    if eng.cache.kind == "paged":
-        eng.backend.allocator.reset_peak()
-        eng.backend.cow_copies = eng.backend.shared_page_hits = 0
-    if eng.graphs is not None:
-        eng.graphs.replays.clear()
+    with on_device(eng.device):
+        rng = np.random.default_rng(12345)
+        for i, b in enumerate(eng.buckets):
+            eng.submit(Request(uid=-1 - i, prompt=rng.integers(
+                0, vocab, b, dtype=np.int32), max_new=2,
+                temperature=warm_temp))
+        if warm_temp > 0:
+            eng.submit(Request(uid=-1 - len(eng.buckets),
+                               prompt=rng.integers(0, vocab, eng.buckets[0],
+                                                   dtype=np.int32),
+                               max_new=2))
+        eng.run(max_steps=max_steps)
+        eng.warm_decode(sample=warm_temp > 0)
+        eng.done.clear()
+        # the admission draws too, so that sampled streams after the warm-up
+        # are a fresh engine's
+        eng.steps = eng.admissions = eng.refresh_steps = eng._draws = 0
+        eng.decode_seconds = 0.0
+        eng.decode_tokens = 0
+        eng.prefill_cache_hits = 0
+        if eng.cache.kind == "paged":
+            eng.backend.allocator.reset_peak()
+            eng.backend.cow_copies = eng.backend.shared_page_hits = 0
+        if eng.graphs is not None:
+            eng.graphs.replays.clear()
 
 
 def warmup_router(router: Router, vocab: int, warm_temp: float = 0.0,
                   max_steps: int = 100_000, requests=None) -> None:
-    """Warm every replica (`warmup_engine`: on the card each replica
-    captures its own graphs), then the executor's own graphs (the sharded
-    group step, `executor.warm()`), then zero the router's counters.  The
+    """Warm every replica this process runs (`warmup_engine`: on the card
+    each replica captures its own graphs; a replica mesh's rank warms its
+    own block), then the executor's own graphs (the sharded group step,
+    `executor.warm()`), then zero the router's counters.  The
     engines are warmed directly, which is safe while no drive is in
     flight; every key a threaded drive can meet must be captured here,
     since captures are closed during it.  Pass `requests` to derive
     warm_temp from the traffic (warm_temp_for)."""
     if requests is not None:
         warm_temp = warm_temp_for(requests, warm_temp)
-    for eng in router.engines:
-        warmup_engine(eng, vocab, warm_temp, max_steps=max_steps)
+    for i in router.executor.local:
+        warmup_engine(router.engines[i], vocab, warm_temp,
+                      max_steps=max_steps)
     router.executor.warm(sample=warm_temp > 0)
     router.reset_counters()
 
@@ -446,8 +450,9 @@ def router_stats(router: Router, done: Dict[int, Request], wall: float,
         **latency_stats(done),
         "route_policy": router.policy.name,
         "exec_mode": router.executor.name,
-        "cache_bytes": sum(int(e.backend.resident_bytes(e.cache))
-                           for e in engines),
+        # the engines this process runs (a replica mesh's rank: its block)
+        "cache_bytes": sum(int(engines[i].backend.resident_bytes(
+            engines[i].cache)) for i in router.executor.local),
         "decode_tok_per_s": (sum(e.decode_tokens for e in engines)
                              / max(sum(e.decode_seconds for e in engines),
                                    1e-9)),

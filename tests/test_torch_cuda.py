@@ -1139,6 +1139,132 @@ def test_sharded_group_graph_streams_equal_one_engine_on_card(
             n_l * chunk * 2 * ticks
 
 
+# -- serving replicas across ranks and cards ---------------------------------
+
+REPLICA_TWIN = r"""
+import sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from torch_mesh_harness import dump, init_ranks
+
+rank, n, tmp = int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])
+init_ranks(rank, n, tmp)
+from repro_torch import configs
+from repro_torch.kernels import paged_attention
+from repro_torch.models import api
+from repro_torch.parallel.sharding import replica_mesh
+from repro_torch.serving.router import Router
+from repro_torch.serving.workload import mixed_requests, warmup_router
+try:
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = configs.get_smoke_config("internlm2-1.8b")
+    cfg = cfg.replace(dsg=cfg.dsg._replace(threshold_mode="topk"))
+    gen = torch.Generator().manual_seed(0)
+    model = api.init_model(cfg, generator=gen, device="cpu")
+    dsg = api.init_dsg(model, cfg, generator=gen, device="cpu")
+    model = model.to(dev)
+    dsg = {k: v.to(dev) for k, v in dsg.items()}
+    out = {}
+    for backend in ("dense", "paged"):
+        for chunk in (1, 8):
+            router = Router(cfg, model, dsg, n_replicas=4,
+                            policy="round_robin", exec_mode="sharded",
+                            mesh=replica_mesh(n, "cuda"),
+                            n_slots=2, max_seq=64, prompt_bucket=32,
+                            page_size=8, cache_backend=backend,
+                            decode_chunk=chunk)
+            warmup_router(router, cfg.vocab)
+            graphs = router.executor.graphs
+            for r in mixed_requests(cfg.vocab, 6, seed=23,
+                                    prompt_range=(4, 30),
+                                    max_new_range=(3, 9)):
+                router.submit(r)
+            done = router.run(4000)
+            out[(backend, chunk)] = {
+                "streams": {u: list(r.output) for u, r in done.items()},
+                "log": list(router.dispatch_log), "steps": router.steps,
+                "local": router.executor.local,
+                "replays": sum(graphs.replays.values()),
+                "split": graphs.launches(paged_attention.paged_decode)}
+    every = [None] * n
+    dist.all_gather_object(every, out)
+    if rank == 0:
+        dump(every, tmp / "torch.pkl")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def replica_twins(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_harness as mh
+    return mh.run_ranks(tmp_path_factory.mktemp("replica_twins"),
+                        REPLICA_TWIN, 2)
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_replica_mesh_ranks_match_one_process_on_card(cuda, replica_twins,
+                                                      backend, chunk):
+    """Four replicas over two gloo ranks on the card, a block of two a
+    rank, each rank's group in its own graphs: every rank returns the
+    one-process sharded router's streams, dispatch log and steps, and a
+    rank's paged launches are layers x chunk x 2 x its replays."""
+    want, one = _router_streams(cuda, "sharded", backend=backend,
+                                chunk=chunk, replicas=4,
+                                policy="round_robin")
+    n_l = one.engines[0].cfg.n_layers
+    for k, ranks in enumerate(replica_twins):
+        got = ranks[(backend, chunk)]
+        assert got["local"] == [2 * k, 2 * k + 1]
+        assert got["streams"] == want
+        assert got["log"] == one.dispatch_log
+        assert got["steps"] == one.steps
+        assert got["replays"] > 0
+        if backend == "paged":
+            assert got["split"] == n_l * chunk * 2 * got["replays"]
+
+
+def test_threaded_router_places_replicas_on_cards_on_card(cuda):
+    """With several cards, a threaded router of 4 replicas runs replica r on
+    a copy of the model on card r % count (replica 0 on the caller's), and
+    the streams are one engine's."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA devices")
+    want, eng = _router_streams(cuda, None, chunk=8, replicas=None)
+    got, router = _router_streams(cuda, "threaded", chunk=8, replicas=4,
+                                  policy="round_robin")
+    assert got == want
+    assert [e.device for e in router.engines] == [
+        torch.device("cuda", r % count) for r in range(4)]
+    assert all(e.graphs.device == e.device for e in router.engines)
+    assert all(sum(e.graphs.replays.values()) > 0 for e in router.engines)
+
+
+def test_kernel_for_another_card_launches_there_on_card(cuda):
+    """A wrapper makes its operands' card current around its launch: called
+    with cuda:0 current on operands on cuda:1 it runs on cuda:1 and agrees
+    with the plain version.  The launch itself checks it: the stream
+    argument of a launch for cuda:1 raises while cuda:0 is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    one = torch.device("cuda", 1)
+    args = _paged_inputs(np.random.default_rng(0), 2, 4, 2, 16, 8, 4,
+                         [3, 9], torch.float32, one)
+    with torch.cuda.device(0):
+        o, _, _ = _run_paged(paged_attention.paged_decode, args)
+        with pytest.raises(RuntimeError, match="current device"):
+            cuda_lib.stream(one)
+    ow, _, _ = _run_paged(paged_attention.paged_decode_plain, args)
+    assert o.device == one
+    _close(o, ow, torch.float32)
+
+
 def test_capture_inside_threaded_drive_raises_on_card(cuda):
     """A chunked engine that was not warmed meets its first graph key
     inside a threaded drive: the capture is refused and raises, and the

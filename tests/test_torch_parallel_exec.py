@@ -72,13 +72,37 @@ def test_exec_mode_guards(parts):
 
 
 @pytest.mark.parametrize("mode", EXEC_MODES)
-def test_mesh_raises_naming_the_roadmap(parts, mode):
-    """Every replica runs on its model's one device: a replica mesh is not
-    ported, and asking for one raises instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_router(parts[1], n_replicas=2, exec_mode=mode, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardedExecutor([], mesh=object())
+def test_mesh_raises_naming_the_roadmap(parts, mode, tmp_path):
+    """(Named for the refusal it held until the replica mesh was ported.)
+    Under a `replicas` mesh (one gloo rank here) the sharded executor
+    spans the mesh: its one rank owns every replica and runs the mesh's
+    command protocol.  The sequential and threaded executors ignore the
+    mesh, as the reference's factory does.  Every mode gives the
+    reference's streams."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import replica_mesh
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        spec = engine_spec(*parts[1], n_replicas=2, exec_mode=mode,
+                           mesh=replica_mesh(1, "cpu"))
+        out, router = port_run(spec, mixed_traffic(parts[0][0]),
+                               return_engine=True)
+        ex = router.executor
+        assert ex.local == [0, 1]
+        if mode == "sharded":
+            assert ex.collective and ex.control.ops["tick"] > 0
+            with pytest.raises(RuntimeError, match="every rank"):
+                router.step()
+        else:
+            assert not ex.collective and not hasattr(ex, "control")
+    finally:
+        dist.destroy_process_group()
+    assert_streams_equal(_reference(parts, "dense"), out, f"{mode} + mesh")
 
 
 def test_replica_proxy_forwards(parts):

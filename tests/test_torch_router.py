@@ -10,6 +10,8 @@ reference's on the same traffic).  least_pages never dispatches a request
 its replica cannot reserve at once, and routed streams do not move with
 the decode chunk.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -90,6 +92,66 @@ def test_replicas_share_one_model(parts):
     assert len({id(e.cache.data["k"]) for e in router.engines}) == 3
     assert [e.seed for e in router.engines] == [0, 1, 2]
     assert [e.replica_index for e in router.engines] == [0, 1, 2]
+
+
+def test_models_supply_one_model_per_replica(parts):
+    """`models=` is the reference's `param_views`: one model a replica,
+    each engine on its own, and a list of another length raises
+    ValueError, as the reference's does."""
+    cfg, model, dsg = parts[1]
+    with pytest.raises(ValueError, match="one model per replica"):
+        Router(cfg, model, dsg, n_replicas=2, models=[model])
+    other = copy.deepcopy(model)
+    router = port_router(parts[1], n_replicas=2, models=[model, other])
+    assert router.engines[0].model is model
+    assert router.engines[1].model is other
+    assert all(e.dsg is dsg for e in router.engines)
+
+
+def test_replica_views_copy_once_a_device(parts):
+    """A replica given a device gets a copy of the caller's model and DSG
+    state there, made once a device and tensor by tensor; replicas on the
+    caller's device keep the caller's model."""
+    cfg, model, dsg = parts[1]
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    views = router_mod.replica_views(model, dsg, [cpu, meta, cpu, meta],
+                                     range(4))
+    assert views[0][0] is views[2][0] is model and views[0][1] is dsg
+    copied, copied_dsg = views[1]
+    assert views[3][0] is copied and views[3][1] is copied_dsg
+    assert all(p.device == meta for p in copied.parameters())
+    assert all(p.device == cpu for p in model.parameters())
+    assert [n for n, _ in copied.named_parameters()] == [
+        n for n, _ in model.named_parameters()]
+    leaves = [v for layer in copied_dsg.values() for v in
+              (layer.values() if isinstance(layer, dict) else [layer])
+              if torch.is_tensor(v)]
+    assert leaves and all(t.device == meta for t in leaves)
+
+
+@pytest.mark.parametrize("exec_mode", ["sequential", "threaded", "sharded"])
+def test_per_replica_models_decode_their_own_streams(parts, exec_mode):
+    """Each replica decodes with its own model: under round_robin with
+    replica 1's model perturbed, replica 0's requests keep the reference's
+    streams and replica 1's are a bare engine's on the perturbed model."""
+    cfg, model, dsg = parts[1]
+    other = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    spec = engine_spec(*parts[1], n_replicas=2, policy="round_robin",
+                       models=[model, other], exec_mode=exec_mode)
+    out, router = port_run(spec, mixed_traffic(parts[0][0]),
+                           return_engine=True)
+    on_other = port_run(engine_spec(cfg, other, dsg),
+                        mixed_traffic(parts[0][0]))
+    ref = _reference(parts, "dense")
+    placed = dict(router.dispatch_log)
+    assert set(placed.values()) == {0, 1}
+    for uid, r in placed.items():
+        assert out[uid] == (ref if r == 0 else on_other)[uid], uid
+    assert any(on_other[u] != ref[u] for u, r in placed.items() if r == 1)
 
 
 def test_stats_raise_before_any_finish(parts):
