@@ -178,9 +178,10 @@ result line):
             topk's.  Prints the modeled and measured makespans,
             parallel tok/s, dispatches of heavy requests per replica,
             per-replica busy seconds, retries and health.
-21. moe — deepseek-moe-16b at full width in bf16 (28 layers, d 2048, 16
-            heads / 16 kv of 128, 64 routed experts + 2 shared of 1408,
-            top-6, vocab 102400, no depth cut), random weights from a
+21. moe — deepseek-moe-16b at full width in bf16 (d 2048, 16 heads / 16
+            kv of 128, 64 routed experts + 2 shared of 1408, top-6, vocab
+            102400), cut to MOE_LAYERS of its 28 layers (the depth cut
+            that pays for phase 26 (b)), random weights from a
             seeded torch.Generator, DSG as the config sets it (mask mode
             inside every expert and the shared experts, gamma 0.5, shared
             threshold, block 128, k 128), paged KV (page 16), 4 slots,
@@ -2033,6 +2034,7 @@ def paged_sweep(args, kwargs) -> dict:
 # -- phases 21-22: the other decoder families at full width ----------------
 
 MOE_ARCH = "deepseek-moe-16b"
+MOE_LAYERS = 14                    # phase 21's depth of the 28 (widths kept)
 DENSE_ARCHS = ("llama3.2-3b", "phi3-mini-3.8b", "mistral-nemo-12b")
 SMOKE_FAMILY_ARCHS = (MOE_ARCH, "llava-next-34b")
 
@@ -2134,9 +2136,10 @@ def kernel_line(tag, name, row) -> str:
 
 
 def moe_phase(dev) -> dict:
-    """Phase 21: deepseek-moe-16b at full width in bf16 (28 layers, d 2048,
-    16 heads / 16 kv, 64 routed experts + 2 shared of 1408, top-6, vocab
-    102400) with random weights from a seeded torch.Generator and DSG as
+    """Phase 21: deepseek-moe-16b at full width in bf16 (MOE_LAYERS of its
+    28 layers, d 2048, 16 heads / 16 kv, 64 routed experts + 2 shared of
+    1408, top-6, vocab 102400) with random weights from a seeded
+    torch.Generator and DSG as
     the config sets it (mask mode in every expert and the shared experts,
     gamma 0.5, shared threshold, block 128, k 128), paged (page 16), 4
     slots, max_seq 512.  See the module docstring."""
@@ -2152,7 +2155,7 @@ def moe_phase(dev) -> dict:
     out = {}
     pw = paged_attention.paged_decode
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get_config(MOE_ARCH)
+    cfg = configs.get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = api.init_model(cfg, generator=gen, device=dev)
@@ -3410,6 +3413,167 @@ def plan_phase(dev) -> dict:
     return out
 
 
+REC_GROUPS = 2                     # the recurrent training steps of
+                                   # phase 26 (b) and --mesh-cards (g) run
+                                   # 2 groups (phase 24's cut), every width
+                                   # kept
+
+
+def rec_train_overrides(arch: str, spec=None) -> list:
+    """`launch.dryrun` overrides of a recurrent arch's training step in
+    phase 26 (b) and `--mesh-cards` (g): REC_GROUPS groups, one
+    microbatch (the ordinary trainer takes the batch whole), then
+    spec's overrides."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    every = (cfg.shared_attn_every if cfg.family == "zamba"
+             else cfg.slstm_every)
+    over = [f"n_layers={REC_GROUPS * every}", "microbatches=1"]
+    return over + [f"{k}={v!r}" for k, v in
+                   (spec or {}).get("overrides", {}).get(arch, {}).items()]
+
+
+def rec_train_cfg(arch: str, spec=None):
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    return dryrun.apply_overrides(configs.get_config(arch),
+                                  rec_train_overrides(arch, spec))
+
+
+def plan_recurrent(dev) -> dict:
+    """Phase 26 (b): `launch.dryrun`'s record of zamba2-7b's phase-24
+    training step (REC_GROUPS of its 13 groups, every width kept, batch 8
+    x seq 256, bf16 with f32 masters, remat, DSG mask mode) on a 1 x 1
+    mesh, against the same step of `launch.train`'s trainer on the card
+    with its state laid out as DTensors on `make_local_mesh()` of a
+    one-rank NCCL group: the state's shards' bytes equal to the record's
+    params + dsg + opt; the peak allocated over building the trainer and
+    its first step within PLAN_PEAK_BAND of the traced peak; one more
+    step's FLOPs and collectives, counted at dispatch
+    (`comm_analysis.analyze`), equal to the record's `analysis`.  The
+    record's HBM bytes over 3.35 TB/s are printed beside a profiled
+    step's device busy ms and wall ms, not held."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch import comm_analysis, dryrun, mesh as lmesh, \
+        train
+    from repro_torch.models import specs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import P, axes_for_mesh, distribute
+    batch, seq = 8, 256
+    over = rec_train_overrides(ZAMBA_ARCH)
+    cfg = rec_train_cfg(ZAMBA_ARCH)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(ZAMBA_ARCH, ShapeConfig("phase24", seq, batch,
+                                                  "train"),
+                          mesh="local", overrides=over)
+    out = {"dryrun": rec, "dryrun_s": time.perf_counter() - t0}
+    if rec["status"] != "ok":
+        fail(f"the dry run of {ZAMBA_ARCH} {over} failed: {rec}")
+    mem, a = rec["memory"], rec["analysis"]
+    print(f"[plan-b] dry run of {ZAMBA_ARCH} ({over}) x {batch} x {seq} "
+          f"(train, 1 x 1 mesh, meta tensors on the host CPU, "
+          f"{out['dryrun_s']:.1f}s): params {mem['params']} B, DSG "
+          f"{mem['dsg']} B, AdamW {mem['opt']} B; {rec['flops']} FLOPs "
+          f"({a['flops']} on the mesh's one device); traced peak "
+          f"{rec['trace_peak_bytes']} B; HBM bytes {a['bytes']}",
+          flush=True)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = lmesh.make_local_mesh()
+        distribute(torch.ones(4, device=dev), mesh, P())
+        base = state_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        acfg = adamw.AdamWConfig(total_steps=4, warmup=1)
+        state, step_fn, _ = train.build_trainer(cfg, acfg, seed=SEED,
+                                                device=dev, mesh=mesh)
+        model = state["model"]
+        shards = {"params": nbytes(p.to_local() for p in model.parameters()),
+                  "dsg": nbytes(t.to_local() for t in state["dsg"].values()),
+                  "opt": nbytes(t.to_local() for k in ("m", "v", "master")
+                                if k in state["opt"]
+                                for t in state["opt"][k].values())}
+        bspecs = specs.input_specs(synthetic.batch_at(
+            0, global_batch=batch, seq_len=seq, vocab=cfg.vocab), cfg,
+            axes_for_mesh(mesh))
+
+        def laid(i):
+            b = synthetic.batch_at(i, global_batch=batch, seq_len=seq,
+                                   vocab=cfg.vocab, seed=SEED)
+            return {k: distribute(v.to(dev), mesh, bspecs[k])
+                    for k, v in b.items()}
+
+        losses = []
+        b = laid(0)
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated() - base
+        b = laid(1)
+        (state, metrics), live = comm_analysis.analyze(
+            lambda: step_fn(state, b))
+        losses.append(float(metrics["loss"]))
+        b = laid(2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step_fn(state, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+        prof_busy = busy(prof)
+        del state, model, step_fn, b
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = peak / rec["trace_peak_bytes"]
+    bound_ms = 1e3 * a["bytes"] / HBM_BYTES_PER_S
+    busy_ms = None if prof_busy is None else prof_busy["busy_ms"]
+    out.update({"shard_bytes": shards, "peak_bytes": peak,
+                "peak_ratio": ratio, "peak_band": PLAN_PEAK_BAND,
+                "losses": losses, "first_step_ms": first_ms,
+                "live_analysis": live, "hbm_bytes": a["bytes"],
+                "hbm_bound_ms": bound_ms, "step_device_busy_ms": busy_ms,
+                "step_wall_ms": wall_ms})
+    print(f"[plan-b] on the card as DTensors of a 1 x 1 mesh: shards "
+          f"{shards} B against the dry run's params / dsg / opt; the "
+          f"trainer's peak over building and its first step {peak} B, "
+          f"ratio to the traced peak {ratio:.4f} (band {PLAN_PEAK_BAND}); "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[plan-b] one step counted at dispatch: {live['flops']} FLOPs "
+          f"against the record's {a['flops']}; collectives "
+          f"{coll_counts(live)} against {coll_counts(a)}; the record's "
+          f"HBM bytes {a['bytes']} over 3.35 TB/s = {bound_ms:.1f} ms "
+          f"beside a profiled step's device busy "
+          f"{'not measured' if busy_ms is None else f'{busy_ms:.1f} ms'} "
+          f"and wall {wall_ms:.1f} ms (not held)", flush=True)
+    if {k: mem[k] for k in shards} != shards:
+        fail(f"the card's shards {shards} are not the dry run's {mem}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{ZAMBA_ARCH} on the 1 x 1 mesh: losses {losses}")
+    if not PLAN_PEAK_BAND[0] <= ratio <= PLAN_PEAK_BAND[1]:
+        fail(f"{ZAMBA_ARCH}: the card's peak is {ratio:.4f} x the dry "
+             f"run's, outside {PLAN_PEAK_BAND}")
+    if live["flops"] != a["flops"] or \
+            live["collectives"] != a["collectives"]:
+        fail(f"{ZAMBA_ARCH}: the card's step counted {live}, the dry run "
+             f"{a}")
+    return out
+
+
 # -- phase 27: the model's parallel parts over a real multi-rank mesh ------
 
 MESH_RANK_FLAG = "--mesh-rank"     # chip_smoke.py --mesh-rank PART RANK N DIR
@@ -4287,6 +4451,77 @@ def mesh_generate(rank, dev, spec) -> dict:
 MESH_PARTS.update(tp_train=mesh_tp_train, ep_prefill=mesh_ep_prefill,
                   remesh=mesh_remesh, generate=mesh_generate)
 
+REC_CARDS_ARCHS = (XLSTM_ARCH, ZAMBA_ARCH)    # (g)
+
+
+def rec_train_run(arch, dev, spec, mesh) -> dict:
+    """(g) on one rank: `launch.train`'s trainer of `arch` at REC_GROUPS
+    groups on `mesh`, one AdamW step of spec's train_batch, then one more
+    with its batch laid out first, counted as the dry run counts
+    (`comm_analysis.analyze`)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import comm_analysis, train
+    from repro_torch.models import specs as mspecs
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import axes_for_mesh, distribute
+    cfg = rec_train_cfg(arch, spec)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    acfg = adamw.AdamWConfig(total_steps=2, warmup=1)
+    state, step_fn, _ = train.build_trainer(cfg, acfg, seed=SEED,
+                                            device=dev, mesh=mesh)
+    b, seq = spec["train_batch"]
+    losses = []
+    state, metrics = step_fn(state, synthetic.batch_at(
+        0, global_batch=b, seq_len=seq, vocab=cfg.vocab, seed=SEED))
+    losses.append(float(metrics["loss"]))
+    batch = synthetic.batch_at(1, global_batch=b, seq_len=seq,
+                               vocab=cfg.vocab, seed=SEED)
+    bspecs = mspecs.input_specs(batch, cfg, axes_for_mesh(mesh))
+    batch = {k: distribute(v.to(dev), mesh, bspecs[k])
+             for k, v in batch.items()}
+    t0 = time.perf_counter()
+    (state, metrics), analysis = comm_analysis.analyze(
+        lambda: step_fn(state, batch))
+    losses.append(float(metrics["loss"]))
+    out = {"losses": losses, "analysis": analysis,
+           "ms": 1e3 * (time.perf_counter() - t0),
+           "peak": torch.cuda.max_memory_allocated() if cuda else None}
+    del state, step_fn, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def traced_rec_train(spec, arch: str, dev) -> dict:
+    """The dry run's record of (g)'s step: rank 0 of a 4-rank fake group
+    on a (data 2, model 2) mesh of the ranks' device type."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh as lmesh
+    b, seq = spec["train_batch"]
+    with lmesh.fake_world(4):
+        fmesh = lmesh.make_elastic_mesh(4, model=2, device_type=dev.type)
+        cell = dryrun.build_cell(arch, ShapeConfig("cards", seq, b, "train"),
+                                 fmesh,
+                                 overrides=rec_train_overrides(arch, spec))
+        analysis, peak = dryrun.trace_sharded(cell)
+    return {"analysis": analysis, "peak": peak}
+
+
+def mesh_rec_train(rank, dev, spec) -> dict:
+    """(g) on four cards: each recurrent arch's training step on a (data
+    2, model 2) mesh."""
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_elastic_mesh(4, model=2, device_type=dev.type)
+    return {arch: rec_train_run(arch, dev, spec, mesh)
+            for arch in REC_CARDS_ARCHS}
+
+
+MESH_PARTS.update(rec_train=mesh_rec_train)
+
 
 # -- phase 28: serving replicas across ranks ---------------------------------
 
@@ -4899,6 +5134,41 @@ def mesh_cards_phase(dev, spec=None) -> dict:
             kept = rm[:rm[0]["plan"][0]]
             if not all(r["same"] and r["laid"] for r in kept):
                 fail(f"remesh_state lost a leaf: {rm}")
+
+        # (g) the recurrent families' training step, 4 cards
+        t0 = time.perf_counter()
+        traced = {arch: traced_rec_train(spec, arch, dev)
+                  for arch in REC_CARDS_ARCHS}
+        out["rec_traced_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt = mesh_spawn("rec_train", 4, tmp, spec)
+        out["rec_s"] = time.perf_counter() - t0
+        out["rec_train"] = {}
+        for arch in REC_CARDS_ARCHS:
+            tr = traced[arch]
+            runs = [r[arch] for r in rt]
+            out["rec_train"][arch] = {
+                "losses": [r["losses"] for r in runs],
+                "ms": [r["ms"] for r in runs],
+                "peak": [r["peak"] for r in runs],
+                "analysis": [r["analysis"] for r in runs], "traced": tr}
+            print(f"[cards] (g) {arch} at {REC_GROUPS} groups, "
+                  f"{spec['train_batch']} on (data 2, model 2): losses "
+                  f"{[[round(x, 4) for x in r['losses']] for r in runs]}; "
+                  f"one step's collectives counted on each rank "
+                  f"{[coll_counts(r['analysis']) for r in runs]} against "
+                  f"the dry run's record {coll_counts(tr['analysis'])}; "
+                  f"step ms {[round(r['ms'], 1) for r in runs]}; peak "
+                  f"{[r['peak'] for r in runs]} B beside the traced "
+                  f"per-device peak {tr['peak']} B", flush=True)
+            for r in runs:
+                if not all(math.isfinite(x) for x in r["losses"]):
+                    fail(f"(g) {arch}: losses {r['losses']}")
+                a = r["analysis"]
+                if a["collectives"] != tr["analysis"]["collectives"] or \
+                        a.get("unmapped") != tr["analysis"].get("unmapped"):
+                    fail(f"(g) {arch}: a rank's step ran collectives {a}, "
+                         f"not the dry run's {tr['analysis']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -5818,6 +6088,13 @@ def main() -> int:
     t0 = time.perf_counter()
     plan = plan_phase(dev)
     print("[plan] stats " + json.dumps(plan, default=str), flush=True)
+    print(f"[phase 26] (a) {time.perf_counter() - t0:.2f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    plan_b = plan_recurrent(dev)
+    print("[plan-b] stats " + json.dumps(plan_b, default=str), flush=True)
+    print(f"[phase 26] (b) {time.perf_counter() - t1:.2f}s", flush=True)
     print(f"[phase 26] {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 27. the parallel parts on rank processes of the card

@@ -21,21 +21,23 @@ For an (architecture x input shape x mesh) cell it
   * traces the sharded step once as rank 0 runs it (`trace_sharded`):
     the model's parameters laid out too, a train step as
     `launch.train`'s trainer runs it on a mesh, prefill and decode
-    through the `api` verbs with `mesh=`; `comm_analysis.CommCounter`
-    counts rank 0's FLOPs and collectives by the reference's kinds (the
-    record's `analysis` and `collectives`), and torch.distributed's
-    MemTracker the peak of its live local storage (`trace_peak_bytes`;
-    less the argument bytes, `memory.temp_size_in_bytes`).  The fake
-    group's collectives move nothing; each returns its result's shape.
-    The recurrent families take no mesh in the port: their step is
-    traced at one data shard's batch on the unsharded model, with no
-    collectives (ROADMAP.md queue 1 item 9c).
+    through the `api` verbs (with `mesh=`, but for the recurrent
+    families, whose verbs take their layout from their arguments);
+    `comm_analysis.CommCounter` counts rank 0's FLOPs, HBM bytes and
+    collectives by the reference's kinds (the record's `analysis` and
+    `collectives`), and `meta_trace.PeakTracker` the peak of its live
+    local storage as torch.distributed's MemTracker counts it
+    (`trace_peak_bytes`; less the argument bytes,
+    `memory.temp_size_in_bytes`).  The fake group's collectives move
+    nothing; each returns its result's shape.
 
 Meta tensors rather than FakeTensorMode's fake CPU tensors: the same
 shapes, dtypes and ops, at a third of the time a traced op takes (a
 32k-token prefill dispatches about 10^5 ops a layer through the chunked
-attention's tiles).  Meta tensors are not on the card, so `kernels/ops.py`
-takes the plain versions, and no kernel is launched.
+attention's tiles), and a third of that again with each op's output
+shapes cached (`meta_trace.MetaCache`).  Meta tensors are not on the
+card, so `kernels/ops.py` takes the plain versions, and no kernel is
+launched.
 
 It needs no card: the one entry point of the port that runs on the CPU
 by design.  The figures for the 256- and 512-rank meshes are computed,
@@ -66,6 +68,7 @@ from repro_torch.configs.base import SHAPES, ShapeConfig, shape_by_name
 from repro_torch.launch import comm_analysis, train
 from repro_torch.launch.mesh import (fake_world, make_local_mesh,
                                      make_production_mesh)
+from repro_torch.launch.meta_trace import MetaCache, PeakTracker
 from repro_torch.models import api, specs, transformer
 from repro_torch.optim import adamw
 from repro_torch.parallel import context as pctx
@@ -292,7 +295,7 @@ def flops_of(fn) -> int:
     """The FLOPs of the matmul-class ops (mm, bmm, addmm, baddbmm,
     convolution, attention) that torch's FLOP counter sees `fn()` run."""
     from torch.utils.flop_counter import FlopCounterMode
-    with FlopCounterMode(display=False) as fc:
+    with MetaCache(), FlopCounterMode(display=False) as fc:
         fn()
     return int(fc.get_total_flops())
 
@@ -300,40 +303,6 @@ def flops_of(fn) -> int:
 def count_flops(cell: Cell) -> int:
     """The step's global FLOPs."""
     return flops_of(step_fn(cell, cell.inputs, cell.cache))
-
-
-def _peak_tracker():
-    """torch.distributed's MemTracker counting the bytes of live tensor
-    storages, without its per-module statistics: those refuse a module
-    called a second time from the top level, as the port's norms are
-    (called from functions, once a microbatch; zamba's shared block once
-    a group).  A collective's wait and autograd wrap return their input,
-    as they do on the card."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
-    class PeakTracker(MemTracker):
-        def _pre_fw_hook(self, module, inputs):
-            pass
-
-        def _post_fw_hook(self, module, inputs, outputs):
-            pass
-
-        def _pre_bw_hook(self, module, args):
-            pass
-
-        def _post_bw_hook(self, module, args):
-            pass
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func in alias_ops and args[0].is_meta:
-                # on the card these return their input; their meta
-                # kernels make a new tensor, which would count it twice
-                return args[0]
-            return super().__torch_dispatch__(func, types, args, kwargs)
-
-    alias_ops = (torch.ops._c10d_functional.wait_tensor.default,
-                 torch.ops._c10d_functional._wrap_tensor_autograd.default)
-    return PeakTracker()
 
 
 def trace_peak(cell: Cell) -> tuple:
@@ -347,15 +316,14 @@ def trace_peak(cell: Cell) -> tuple:
     cache = _zip_map(lambda t, s: _shard_batch(t, s, cell.ax,
                                                cell.n_data),
                      cell.cache, cell.specs.get("cache"))
-    tracker = _peak_tracker()
+    tracker = PeakTracker()
     tracker.track_external(cell.model, *_leaves(cell.dsg),
                            *_leaves(cell.opt), *_leaves(inputs),
                            *_leaves(cache))
-    with tracker:
+    with MetaCache(), tracker:
         step_fn(cell, inputs, cache)()
-    peak = tracker.get_tracker_snapshot("peak")
     batch = next(iter(inputs.values())).shape[0]
-    return sum(v["Total"] for v in peak.values()), batch
+    return sum(tracker.peak.values()), batch
 
 
 def sharded_step_fn(cell: Cell):
@@ -364,8 +332,9 @@ def sharded_step_fn(cell: Cell):
     `count_flops` runs first), the DSG state, the AdamW state (ZeRO-1),
     the inputs and the cache as `build_cell` laid them out; a train step
     by `train_step` with `mesh=`, prefill and decode by the `api` verbs
-    with `mesh=` and `batch_axes=`.  Call it under the mesh's parallel
-    context."""
+    with `mesh=` and `batch_axes=` (the recurrent families' without:
+    their layout comes from the arguments).  Call it under the mesh's
+    parallel context."""
     cfg, shape, mesh, lay = cell.cfg, cell.shape, cell.mesh, cell.layout
     distribute_model(cell.model, mesh, cell.specs["params"])
     if shape.kind == "train":
@@ -374,14 +343,15 @@ def sharded_step_fn(cell: Cell):
         return lambda: train_step(cell.model, lay["dsg"], opt, cfg,
                                   lay["inputs"], acfg, read_norm=_meta_norm,
                                   mesh=mesh, batch_axes=cell.ax.batch)
+    kw = ({} if cfg.family in api.RECURRENT_FAMILIES else
+          {"mesh": mesh, "batch_axes": cell.ax.batch})
     if shape.kind == "prefill":
         return lambda: api.prefill(cell.model, lay["dsg"], cfg,
-                                   lay["inputs"], lay["cache"], mesh=mesh,
-                                   batch_axes=cell.ax.batch)
+                                   lay["inputs"], lay.get("cache"), **kw)
     pos = _decode_pos(cfg, shape)
     return lambda: api.decode_step(cell.model, lay["dsg"], cfg,
                                    lay["inputs"]["token"], lay["cache"],
-                                   pos, mesh=mesh, batch_axes=cell.ax.batch)
+                                   pos, **kw)
 
 
 def trace_sharded(cell: Cell) -> tuple:
@@ -392,16 +362,15 @@ def trace_sharded(cell: Cell) -> tuple:
     its activations, gradients, temporaries and collective buffers)."""
     fn = sharded_step_fn(cell)
     lay = cell.layout
-    tracker = _peak_tracker()
+    tracker = PeakTracker()
     tracker.track_external(cell.model, *_leaves(lay["dsg"]),
                            *_leaves(lay.get("opt")),
                            *_leaves(lay["inputs"]), *_leaves(lay.get("cache")))
     with pctx.use_mesh(cell.mesh, batch_shardable=cell.batch_ok), \
-            tracker, comm_analysis.CommCounter() as counter:
+            MetaCache(), tracker, comm_analysis.CommCounter() as counter:
         fn()
     # the device's bytes: DTensor keeps a few host scalars of its own
-    peak = tracker.get_tracker_snapshot("peak").get(torch.device("meta"))
-    return counter.analysis(), peak["Total"] if peak else 0
+    return counter.analysis(), tracker.peak.get(torch.device("meta"), 0)
 
 
 def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
@@ -432,16 +401,10 @@ def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
         rec["memory"] = memory(cell)
         t1 = time.perf_counter()
         flops = count_flops(cell)
-        if cell.cfg.family in api.RECURRENT_FAMILIES:
-            analysis = None
-            peak, batch = trace_peak(cell)
-            rec["memory"]["temp_size_in_bytes"] = None
-        else:
-            analysis, peak = trace_sharded(cell)
-            batch = shape.global_batch // (cell.n_data if cell.batch_ok
-                                           else 1)
-            rec["memory"]["temp_size_in_bytes"] = (
-                peak - rec["memory"]["argument_size_in_bytes"])
+        analysis, peak = trace_sharded(cell)
+        batch = shape.global_batch // (cell.n_data if cell.batch_ok else 1)
+        rec["memory"]["temp_size_in_bytes"] = (
+            peak - rec["memory"]["argument_size_in_bytes"])
         t2 = time.perf_counter()
     rec.update({
         "batch_sharded": cell.batch_ok,
@@ -452,46 +415,33 @@ def run_cell(arch: str, shape, multi_pod: bool = False, dsg_on: bool = True,
         "trace_batch": batch,
         "build_s": round(t1 - t0, 2),
         "trace_s": round(t2 - t1, 2),
-        "collectives": None if analysis is None else analysis["collectives"],
-        "notes": _notes(analysis is not None, batch),
+        "collectives": analysis["collectives"],
+        "notes": _notes(batch),
         "status": "ok"})
     return rec
 
 
-def _notes(sharded: bool, batch: int) -> dict:
-    notes = {
+def _notes(batch: int) -> dict:
+    return {
         "memory": "per-device bytes of rank 0's DTensor shards by the spec "
                   "rules (ZeRO-1 for the optimizer state); the AdamW step "
                   "count is a host int",
         "flops": "the step's global FLOPs on the unsharded model "
                  "(torch.utils.flop_counter), remat recompute included; "
-                 "flops_per_device_ideal is flops / devices"}
-    if sharded:
-        notes.update({
-            "analysis": "rank 0's share of the sharded step, counted at "
-                        "dispatch (launch/comm_analysis.py): flops of its "
-                        "local ops; collectives by the reference's kinds, "
-                        "bytes of each result on this rank (f32_bytes: of "
-                        "the f32 ones); bytes: " + comm_analysis.BYTES_NOTE,
-            "trace_peak_bytes": "MemTracker's peak of live local storage "
-                                "over the sharded step on rank 0 (its "
-                                f"batch {batch}): the state's shards, "
-                                "inputs, cache, activations, gradients, "
-                                "temporaries, collective buffers",
-            "temp_size_in_bytes": "trace_peak_bytes less "
-                                  "argument_size_in_bytes",
-            "collectives": "analysis['collectives']"})
-    else:
-        reason = ("none traced: the family takes no mesh in the port "
-                  "(ROADMAP.md queue 1 item 9c)")
-        notes.update({
-            "analysis": reason,
-            "trace_peak_bytes": f"MemTracker's peak of the step traced at "
-                                f"one data shard's batch ({batch}) with the "
-                                f"model unsharded",
-            "temp_size_in_bytes": reason,
-            "collectives": reason})
-    return notes
+                 "flops_per_device_ideal is flops / devices",
+        "analysis": "rank 0's share of the sharded step, counted at "
+                    "dispatch (launch/comm_analysis.py): flops of its "
+                    "local ops; collectives by the reference's kinds, "
+                    "bytes of each result on this rank (f32_bytes: of "
+                    "the f32 ones); bytes: " + comm_analysis.BYTES_NOTE,
+        "trace_peak_bytes": "the peak of live local storage over the "
+                            "sharded step on rank 0 (its batch "
+                            f"{batch}), as MemTracker counts it: the "
+                            "state's shards, inputs, cache, activations, "
+                            "gradients, temporaries, collective buffers",
+        "temp_size_in_bytes": "trace_peak_bytes less "
+                              "argument_size_in_bytes",
+        "collectives": "analysis['collectives']"}
 
 
 def _fname(out, arch, shape, mesh, tag) -> str:

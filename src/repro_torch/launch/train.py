@@ -176,11 +176,13 @@ def step_grads(model, dsg, cfg, batch: dict, *, mesh=None, batch_axes=None,
     params = dict(model.named_parameters())
     mb = max(1, microbatches)
     grads = None
+    # the recurrent families' loss takes its layout from its arguments
+    loss_mesh = None if cfg.family in api.RECURRENT_FAMILIES else mesh
     for i in range(mb):
         part = api.train_loss(model, dsg, cfg,
                               {k: _microbatch(v, i, mb)
                                for k, v in batch.items()},
-                              mesh=mesh, batch_axes=batch_axes)
+                              mesh=loss_mesh, batch_axes=batch_axes)
         g = loss_grads(part, params)
         if mb == 1:
             grads, loss = dict(zip(params, g)), part.detach()
@@ -430,8 +432,9 @@ def main(argv=None):
     mesh = None
     if args.production_mesh:
         if cfg.family in api.RECURRENT_FAMILIES:
-            ap.error(f"--arch {args.arch}: the recurrent families train "
-                     f"unsharded, as the reference's (ROADMAP.md §3)")
+            ap.error(f"--arch {args.arch}: --production-mesh does not lay "
+                     f"out the recurrent families yet; train(mesh=) does "
+                     f"(ROADMAP.md §3)")
         import os
         from torch import distributed as dist
         if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:

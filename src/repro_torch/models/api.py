@@ -25,13 +25,15 @@ group-CSR FFN; nor does the encoder-decoder family, whose prefill takes
 on the card unless the caller asks for the CPU (`device="cpu"`); with no
 card they raise.
 
-Sharded (the decoder and encoder-decoder families, as in the reference,
-whose recurrent families take no mesh): `train_loss`, `prefill`,
-`decode_step` and `prefill_slot` take the reference's `mesh` and
-`batch_axes`, for a model whose weights are DTensors on that mesh
+Sharded (the decoder and encoder-decoder families): `train_loss`,
+`prefill`, `decode_step` and `prefill_slot` take the reference's `mesh`
+and `batch_axes`, for a model whose weights are DTensors on that mesh
 (`parallel.sharding.distribute_model`).  The call runs under the mesh's
 parallel context, installed here unless the caller has; a backward of a
-sharded loss runs under it too (`parallel.context.use_mesh`).
+sharded loss runs under it too (`parallel.context.use_mesh`).  The
+recurrent families' verbs take no `mesh`, as the reference's: called on
+DTensor weights, state and inputs under the caller's parallel context,
+they run sharded by those layouts (`models/recurrent.py`).
 """
 from __future__ import annotations
 
@@ -115,8 +117,10 @@ def _mesh_ctx(cfg: ModelConfig, mesh):
     if mesh is None:
         return nullcontext()
     if cfg.family in RECURRENT_FAMILIES:
-        raise TypeError(f"family {cfg.family!r} takes no mesh (the "
-                        f"reference's recurrent families run unsharded)")
+        raise TypeError(f"family {cfg.family!r} takes no mesh, as in the "
+                        f"reference: lay its weights, state and inputs out "
+                        f"as DTensors and call it under the mesh's "
+                        f"parallel context")
     ctx = pctx.current()
     if ctx is not None and ctx.mesh is mesh:
         return nullcontext()
@@ -136,10 +140,10 @@ def _train_loss(model, dsg, cfg: ModelConfig, batch: dict, mesh,
         return encdec.train_loss(model, dsg, cfg, batch, mesh, batch_axes)
     if cfg.family == "xlstm":
         logits, _ = recurrent.xlstm_forward(model, dsg, cfg, batch["tokens"])
-        return transformer.cross_entropy(logits, batch["labels"])
+        return transformer.sharded_cross_entropy(logits, batch["labels"])
     if cfg.family == "zamba":
         logits, _ = recurrent.zamba_forward(model, dsg, cfg, batch["tokens"])
-        return transformer.cross_entropy(logits, batch["labels"])
+        return transformer.sharded_cross_entropy(logits, batch["labels"])
     return transformer.train_loss(model, dsg, cfg, batch, mesh, batch_axes)
 
 

@@ -184,7 +184,7 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
                    page_table: Optional[torch.Tensor] = None,
                    live_pages: Optional[int] = None,
                    paged_kernel: str = "auto", shard: str = "auto",
-                   bf16_scores: bool = False):
+                   bf16_scores: bool = False, kv_out: bool = False):
     """Self-attention over x (B, S, d) -> (out, cache).
 
     cache=None: attend over the S new tokens; returns their K/V.
@@ -203,7 +203,9 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     attends over each lane's positions <= its depth within the leading
     `live_pages` pages.
     `shard` picks the sharded layout inside a parallel context ("auto":
-    "head" when the heads divide the model axis, else "seq").
+    "head" when the heads divide the model axis, else "seq"); there, with
+    no cache, the new K/V come back only with `kv_out` (laid out by the
+    K/V heads' spec rule), else as None.
     """
     s = x.shape[1]
     mode = pctx.resolve_attn_shard(shard, n_heads)
@@ -211,7 +213,8 @@ def self_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         return _tp_self_attention(
             p, x, n_heads=n_heads, rope_theta=rope_theta, q_pos=q_pos,
             causal=causal, window=window, cache=cache, cache_pos=cache_pos,
-            cache_kv_pos=cache_kv_pos, bf16_scores=bf16_scores, mode=mode)
+            cache_kv_pos=cache_kv_pos, bf16_scores=bf16_scores, mode=mode,
+            kv_out=kv_out)
     q = _proj(x, p.wq)
     k_new = _proj(x, p.wk)
     v_new = _proj(x, p.wv)
@@ -378,7 +381,8 @@ def _tp_core(q, k, v, wo, qp, kv_pos, *, mesh, group: int, h0, kv0,
 
 def _tp_attention(p: Attention, x, q_pos, *, n_heads: int,
                   rope_theta: float, causal: bool, window: int,
-                  bf16_scores: bool, chunked: bool, mode: str):
+                  bf16_scores: bool, chunked: bool, mode: str,
+                  kv_out: bool = False):
     """Attention with no cache (training, the encoder) as one shard_map
     body: the projections of this rank's query heads and of the K/V
     heads they read (head mode: K/V heads that do not divide the axis
@@ -396,6 +400,9 @@ def _tp_attention(p: Attention, x, q_pos, *, n_heads: int,
     s = x.shape[1]
     rows = "model" if mode == "seq" and s % n == 0 else None
     pos, pos_spec = _positions(q_pos)
+    if kv_out and head and not kv:
+        raise NotImplementedError(
+            f"the K/V of {n_kv} heads split over a model axis of {n}")
 
     def body(x_l, wq, wk, wv, wo, qp):
         h_l = wq.shape[1]
@@ -417,15 +424,18 @@ def _tp_attention(p: Attention, x, q_pos, *, n_heads: int,
                            rope_theta)
             k = apply_rope(k, qp if qp.ndim == 2 else qp[None, :],
                            rope_theta)
-        return _tp_core(q, k, v, wo, qq, qp, mesh=mesh, group=group, h0=h0,
-                        kv0=kv0, head=head, rows=rows, causal=causal,
-                        window=window, bf16_scores=bf16_scores,
-                        chunked=chunked)
+        out = _tp_core(q, k, v, wo, qq, qp, mesh=mesh, group=group, h0=h0,
+                       kv0=kv0, head=head, rows=rows, causal=causal,
+                       window=window, bf16_scores=bf16_scores,
+                       chunked=chunked)
+        return (out, k, v) if kv_out else out
 
+    kv_spec = P(ba, None, kv, None)
     return shard_map(
         body, mesh,
         (P(ba, None, None), P(None, head, None), P(None, kv, None),
          P(None, kv, None), P(head, None, None), pos_spec),
+        (P(ba, None, None), kv_spec, kv_spec) if kv_out else
         P(ba, None, None),
         redundant=("model",) if mode == "seq" and not rows else ())(
             pctx.replicated(x), p.wq, p.wk, p.wv, p.wo, pos)
@@ -524,7 +534,8 @@ def _tp_split_kv(q, k, v, wo, q_pos, kv_pos, *, n_heads: int, causal: bool,
 
 def _tp_self_attention(p: Attention, x, *, n_heads: int, rope_theta: float,
                        q_pos, causal: bool, window: int, cache, cache_pos,
-                       cache_kv_pos, bf16_scores: bool, mode: str):
+                       cache_kv_pos, bf16_scores: bool, mode: str,
+                       kv_out: bool = False):
     """`self_attention` of a model whose weights are DTensors, in a
     parallel context with a 'model' axis: the projections, the core and
     the output projection as explicit shard_map bodies, so the only
@@ -540,8 +551,11 @@ def _tp_self_attention(p: Attention, x, *, n_heads: int, rope_theta: float,
               bf16_scores=bf16_scores, mode=mode)
     if cache is None:
         chunked = s * s > CHUNK_THRESHOLD and q_pos.ndim == 1
-        return _tp_attention(p, x, q_pos, rope_theta=rope_theta,
-                             chunked=chunked, **kw), None
+        out = _tp_attention(p, x, q_pos, rope_theta=rope_theta,
+                            chunked=chunked, kv_out=kv_out, **kw)
+        if kv_out:
+            return out[0], {"k": out[1], "v": out[2]}
+        return out, None
     (q,) = _tp_project(x, (p.wq,), head, q_pos, rope_theta)
     k_new, v_new = _tp_project(x, (p.wk, p.wv), kv, q_pos, rope_theta)
     t = cache["k"].shape[1]

@@ -154,25 +154,36 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba2_forward(p: Mamba2, x: torch.Tensor, dm: Mamba2Dims,
                    state: Optional[dict] = None,
-                   gate_mask: Optional[torch.Tensor] = None):
+                   gate_mask: Optional[torch.Tensor] = None,
+                   heads: Optional[slice] = None):
     """The full block.  Training and prefill: state None.  Returns (y,
     new_state) with new_state {'ssm': (B, H, N, P) f32, 'conv_x': (B, K-1,
     d_in), 'conv_bc': (B, K-1, 2N)}; a single token with a state takes the
     one-step recurrence.  gate_mask (B, S, d_in), when given, multiplies
-    the SiLU gate (the DSG site)."""
+    the SiLU gate (the DSG site).  `heads` (inside a tensor-parallel body)
+    names the heads whose columns of w_z, w_x and conv_x and rows of
+    w_out `p` holds, and whose part of the state it takes and gives; the
+    per-head leaves, w_bcdt and conv_bc are whole.  y is then this
+    rank's partial sum of the out-projection."""
     z = x @ p.w_z
     xs = x @ p.w_x
     bcdt = x @ p.w_bcdt
     bc, dt = bcdt[..., :2 * dm.n], bcdt[..., 2 * dm.n:]
+    a_log, dt_bias, d_skip = p.a_log, p.dt_bias, p.d_skip
+    if heads is not None:
+        dt, a_log, dt_bias, d_skip = (t[..., heads] for t in (dt, a_log,
+                                                              dt_bias,
+                                                              d_skip))
+        dm = dm._replace(d_in=xs.shape[-1], heads=dt.shape[-1])
     xs, new_conv_x = _causal_conv(xs, p.conv_x,
                                   state["conv_x"] if state else None)
     bc, new_conv_bc = _causal_conv(bc, p.conv_bc,
                                    state["conv_bc"] if state else None)
     bmat, cmat = bc.chunk(2, dim=-1)
 
-    pre = dt.float() + p.dt_bias
+    pre = dt.float() + dt_bias
     dt = torch.logaddexp(pre, torch.zeros_like(pre))     # softplus, (B,S,H)
-    a = -torch.exp(p.a_log) * dt                         # (B,S,H)
+    a = -torch.exp(a_log) * dt                           # (B,S,H)
     xh = xs.reshape(xs.shape[:2] + (dm.heads, dm.head_dim))
 
     h0 = state["ssm"] if state else None
@@ -186,7 +197,7 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, dm: Mamba2Dims,
     else:
         y, h_final = ssd_chunked(xh, dt, a, bmat, cmat, dm, h0)
 
-    y = y + xh.float() * p.d_skip[:, None]
+    y = y + xh.float() * d_skip[:, None]
     y = y.reshape(x.shape[0], x.shape[1], dm.d_in).to(x.dtype)
     gate = F.silu(z)
     if gate_mask is not None:

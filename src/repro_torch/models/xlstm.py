@@ -131,15 +131,16 @@ def mlstm_chunked(q, k, v, log_f, i_gate, dm: MLSTMDims, c0=None, n0=None):
     return torch.cat(ys, dim=1), (c_prev, n_prev)
 
 
-def mlstm_forward(p: MLSTM, x: torch.Tensor, dm: MLSTMDims,
-                  state: Optional[dict] = None):
-    """x (B, S, d) -> (out (B, S, d), {'c', 'n'}); a single token with a
-    state takes the one-step recurrence."""
-    b, s, _ = x.shape
+def mlstm_core(qkv: torch.Tensor, gates: torch.Tensor, dm: MLSTMDims,
+               state: Optional[dict] = None):
+    """The mLSTM between its projections: qkv (B, S, H(2Dk + Dv)) and the
+    gates' pre-activations (B, S, 2H) f32, with their bias -> (y (B, S,
+    H Dv) in qkv's dtype, {'c', 'n'}); a single token with a state takes
+    the one-step recurrence."""
+    b, s, _ = qkv.shape
     h, dk, dv = dm.heads, dm.dk, dm.dv
-    qkv = (x @ p.w_qkv).reshape(b, s, h, 2 * dk + dv)
+    qkv = qkv.reshape(b, s, h, 2 * dk + dv)
     q, k, v = qkv[..., :dk], qkv[..., dk:2 * dk], qkv[..., 2 * dk:]
-    gates = x.float() @ p.w_gates + p.b_gates
     i_raw, f_raw = gates.chunk(2, dim=-1)                       # (B,S,H)
     i_gate = torch.exp(torch.clamp(i_raw, max=8.0))  # stabilised exp gate
     log_f = F.logsigmoid(f_raw)
@@ -161,8 +162,44 @@ def mlstm_forward(p: MLSTM, x: torch.Tensor, dm: MLSTMDims,
         y, (c_f, n_f) = mlstm_chunked(
             q, k, v, log_f, i_gate, dm, state["c"] if state else None,
             state["n"] if state else None)
-    out = y.to(x.dtype).reshape(b, s, h * dv) @ p.w_out
-    return out, {"c": c_f, "n": n_f}
+    return y.to(qkv.dtype).reshape(b, s, h * dv), {"c": c_f, "n": n_f}
+
+
+def mlstm_forward(p: MLSTM, x: torch.Tensor, dm: MLSTMDims,
+                  state: Optional[dict] = None):
+    """x (B, S, d) -> (out (B, S, d), {'c', 'n'}); with no state C and n
+    start at zeros and ones."""
+    y, st = mlstm_core(x @ p.w_qkv, x.float() @ p.w_gates + p.b_gates, dm,
+                       state)
+    return y @ p.w_out, st
+
+
+def slstm_scan(pre: torch.Tensor, r_diag: torch.Tensor,
+               state: Optional[dict] = None):
+    """The sLSTM's loop over time in f32 on its gates' input
+    pre-activations pre (B, S, 4, d) (z, f, i, o), with the diagonal
+    recurrent weights r_diag (4, d): (h over time (B, S, d) f32, state
+    {'c', 'n', 'm', 'h'} (B, d)); with no state c, m and h start at zero
+    and n at one.  Its channels are independent, so any slice of d runs
+    alone."""
+    b, s, _, d = pre.shape
+    if state is None:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=pre.device)
+        state = {"c": zeros, "n": zeros + 1.0, "m": zeros, "h": zeros}
+    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+    hs = []
+    for t in range(s):
+        z_r, f_r, i_r, o_r = (pre[:, t] + r_diag * h[:, None, :]).unbind(1)
+        f_m = f_r + m
+        m_new = torch.maximum(f_m, i_r)                         # stabiliser
+        i_g = torch.exp(i_r - m_new)
+        f_g = torch.exp(f_m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_r)
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), {"c": c, "n": n, "m": m, "h": h}
 
 
 def slstm_forward(p: SLSTM, x: torch.Tensor, state: Optional[dict] = None):
@@ -171,25 +208,5 @@ def slstm_forward(p: SLSTM, x: torch.Tensor, state: Optional[dict] = None):
     c, m and h start at zero and n at one."""
     b, s, d = x.shape
     pre = x.float() @ p.w_in.float() + p.bias
-    if state is None:
-        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        state = {"c": zeros, "n": zeros + 1.0, "m": zeros, "h": zeros}
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    hs = []
-    for t in range(s):
-        pre_t = pre[:, t]
-        rec = p.r_diag * h[:, None, :]                          # (B,4,d)
-        z_r = pre_t[:, :d] + rec[:, 0]
-        f_r = pre_t[:, d:2 * d] + rec[:, 1]
-        i_r = pre_t[:, 2 * d:3 * d] + rec[:, 2]
-        o_r = pre_t[:, 3 * d:] + rec[:, 3]
-        m_new = torch.maximum(f_r + m, i_r)                     # stabiliser
-        i_g = torch.exp(i_r - m_new)
-        f_g = torch.exp(f_r + m - m_new)
-        c = f_g * c + i_g * torch.tanh(z_r)
-        n = f_g * n + i_g
-        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return y, {"c": c, "n": n, "m": m, "h": h}
+    y, st = slstm_scan(pre.view(b, s, 4, d), p.r_diag, state)
+    return y.to(x.dtype), st

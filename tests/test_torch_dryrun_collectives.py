@@ -2,8 +2,8 @@
 `launch.comm_analysis`) on the CPU.
 
 (a) At smoke width in f32, on a (data 2, model 2) mesh, for
-internlm2-1.8b, deepseek-moe-16b and whisper-large-v3, train, prefill and
-decode: the port's collectives by kind, counted on rank 0 of a 4-rank
+internlm2-1.8b, deepseek-moe-16b, whisper-large-v3, xlstm-350m and
+zamba2-7b, train, prefill and decode: the port's collectives by kind, counted on rank 0 of a 4-rank
 fake group, against `repro.launch.hlo_analysis.analyze` of the
 reference's compiled sharded step (`repro.launch.dryrun.run_cell` on a
 4-device host mesh, in a subprocess; f32, because XLA:CPU promotes bf16
@@ -12,9 +12,13 @@ device.  The port's projections, loss and embedding are shard_map bodies
 that keep the reference's pattern (q/k/v and gate/up column-parallel,
 the out- and down-projections row-parallel with one all-reduce each, the
 split-KV decode's three reductions, the vocab-parallel loss's three), and
-its gradients are reduced once a step in buckets; every cell stays
-within 1.25x the reference's bytes and 1.5x its count, and no decode
-cell gathers a weight.  `GAP` records both values of each kind that
+its gradients are reduced once a step in buckets; the recurrent
+families' blocks are shard_map bodies with the reference's row- and
+column-parallel projections and their scans on local shards
+(`models/recurrent.py`), where the reference's partitioner permutes the
+scans' carries step by step; every cell stays within 1.25x the
+reference's bytes and 1.5x its count, and no decode cell gathers a
+weight.  `GAP` records both values of each kind that
 still differs, each cause given site by site in ROADMAP.md §3.  The counter
 itself is held two ways: one collective of each kind alone, run through
 the reference's compiled program and through DTensor on the fake group,
@@ -51,11 +55,13 @@ from repro_torch.launch.mesh import fake_world, make_elastic_mesh  # noqa: E402
 from test_torch_dryrun import smoke_overrides  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "deepseek-moe-16b", "whisper-large-v3"]
+# traced as every family is since the recurrent families' bodies
+RECURRENT = ["xlstm-350m", "zamba2-7b"]
 KINDS = ["train", "prefill", "decode"]
 B, S = 8, 32
 
 REF = f"""
-ARCHS, KINDS, B, S = {ARCHS!r}, {KINDS!r}, {B}, {S}
+ARCHS, KINDS, B, S = {ARCHS + RECURRENT!r}, {KINDS!r}, {B}, {S}
 """ + r'''
 import sys
 from pathlib import Path
@@ -304,6 +310,28 @@ GAP = {
                                                     (19, 188464)),
     ("whisper-large-v3", "prefill", "all-gather"): ((8, 32832), (4, 64)),
     ("whisper-large-v3", "decode", "all-reduce"): ((21, 11792), (23, 11800)),
+    ("xlstm-350m", "train", "all-reduce"): ((50, 2086452), (114, 1782712)),
+    ("xlstm-350m", "train", "all-gather"): ((47, 1021248), (37, 898464)),
+    ("xlstm-350m", "train", "reduce-scatter"): ((4, 131072), (0, 0)),
+    ("xlstm-350m", "train", "all-to-all"): ((0, 0), (19, 299008)),
+    ("xlstm-350m", "train", "collective-permute"): ((0, 0), (859, 693760)),
+    ("xlstm-350m", "prefill", "all-reduce"): ((17, 692240), (19, 692256)),
+    ("xlstm-350m", "prefill", "all-gather"): ((8, 262176), (4, 32)),
+    ("xlstm-350m", "prefill", "collective-permute"): ((0, 0),
+                                                      (268, 264192)),
+    ("xlstm-350m", "decode", "all-reduce"): ((17, 21648), (19, 21664)),
+    ("xlstm-350m", "decode", "all-gather"): ((8, 8224), (4, 32)),
+    ("xlstm-350m", "decode", "collective-permute"): ((0, 0), (20, 8256)),
+    ("zamba2-7b", "train", "all-reduce"): ((163, 1268420), (327, 3481308)),
+    ("zamba2-7b", "train", "all-gather"): ((84, 434944), (274, 688448)),
+    ("zamba2-7b", "train", "all-to-all"): ((0, 0), (54, 99328)),
+    ("zamba2-7b", "train", "collective-permute"): ((0, 0), (228, 94720)),
+    ("zamba2-7b", "prefill", "all-reduce"): ((15, 294976), (29, 327768)),
+    ("zamba2-7b", "prefill", "all-gather"): ((6, 128), (22, 65664)),
+    ("zamba2-7b", "prefill", "collective-permute"): ((0, 0), (16, 40960)),
+    ("zamba2-7b", "decode", "all-reduce"): ((21, 11584), (27, 11608)),
+    ("zamba2-7b", "decode", "all-gather"): ((12, 6272), (20, 8320)),
+    ("zamba2-7b", "decode", "collective-permute"): ((0, 0), (16, 1280)),
 }
 
 # the layout's bounds against the reference, a device's totals over the
@@ -312,7 +340,7 @@ BYTES_BOUND, COUNT_BOUND = 1.25, 1.5
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_collectives_against_the_reference_hlo_analysis(runs, arch, kind):
     ref, port = _pairs(runs[0][arch, kind]), _pairs(_port(arch, kind))
     got = {k: (port[k], ref[k]) for k in comm_analysis.COLLECTIVES
@@ -328,20 +356,53 @@ def test_collectives_against_the_reference_hlo_analysis(runs, arch, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_collectives_within_the_reference_bounds(runs, arch, kind):
     """A device's collective bytes at most 1.25x the reference's and its
-    count at most 1.5x, summed over the kinds; at decode the all-gathers
-    are the reference's own (q's heads, the new K/V row's heads, the DSG
-    threshold's row), so no weight is gathered."""
+    count at most 1.5x, summed over the kinds; at decode the mesh
+    families' all-gathers are the reference's own (q's heads, the new K/V
+    row's heads, the DSG threshold's row), so no weight is gathered (the
+    recurrent families' are written out below)."""
     ref, port = _pairs(runs[0][arch, kind]), _pairs(_port(arch, kind))
     total = {name: (sum(c for c, _ in pairs.values()),
                     sum(b for _, b in pairs.values()))
              for name, pairs in (("ref", ref), ("port", port))}
     assert total["port"][1] <= BYTES_BOUND * total["ref"][1], total
     assert total["port"][0] <= COUNT_BOUND * total["ref"][0], total
-    if kind == "decode":
+    if kind == "decode" and arch in ARCHS:
         assert port["all-gather"] == ref["all-gather"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_gathers_written_out_from_the_shapes(arch):
+    """Every all-gather of the recurrent families' decode on (data 2,
+    model 2), by its result on this rank (f32; Bd = B / 2 lanes a data
+    shard): activations and DRS threshold rows, no weight.  xlstm-350m's
+    smoke model has 2 groups of an mLSTM and an sLSTM block (d 64, G = 2
+    DRS groups of 32 in each gate); zamba2-7b's 2 groups of 2 Mamba2
+    blocks (d_in 128, 4 DRS groups) and the shared block (H = Kv = 4 of
+    16, F 256 in 8 DRS groups) called once a group."""
+    cfg = configs.get_smoke_config(arch)
+    bd, f32, block = B // 2, 4, cfg.dsg.block
+    if arch == "xlstm-350m":
+        blocks = cfg.n_layers
+        sites = [
+            (blocks, bd * 2 * cfg.d_model),   # the up-projection, whole
+            (blocks, cfg.d_model // block),   # the threshold row's groups
+        ]
+    else:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        d_in = cfg.ssm_expand * cfg.d_model
+        h, kv, d = cfg.n_heads, cfg.n_kv, cfg.head_dim
+        sites = [
+            (cfg.n_layers, d_in // block),    # a Mamba2 gate's threshold row
+            (groups, bd * h * d),             # q, every head (split-KV)
+            (2 * groups, bd * kv * d),        # the new K and V rows
+            (groups, cfg.d_ff // block),      # the FFN's threshold row
+        ]
+    got = _pairs(_port(arch, "decode"))["all-gather"]
+    assert got == (sum(n for n, _ in sites),
+                   sum(n * b * f32 for n, b in sites))
 
 
 def test_decode_all_reduces_written_out_from_the_shapes():
@@ -454,8 +515,12 @@ def test_counter_on_gloo_ranks_equals_the_fake_world(runs):
                                                          x, gy))
     counted = runs[1]["counted"]
     assert len(counted) == 2
+    # HBM bytes count device memory: the gloo ranks' tensors are in host
+    # memory, the fake world's on the meta device
+    assert traced["bytes"] > 0
     for c in counted:
-        assert c == traced
+        assert c["bytes"] == 0
+        assert dict(c, bytes=traced["bytes"]) == traced
     # the psum of the two shards' outputs and dx's reduction
     assert _pairs(traced)["all-reduce"] == (2, 2 * 2 * 16 * cfg.d_model * 4)
 

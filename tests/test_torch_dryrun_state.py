@@ -11,7 +11,8 @@ prompt's length; zamba's shared-attention K/V have the prompt's length
 
 At full width, the long_500k decode cells of both archs on the
 single-pod mesh (256 fake ranks) come back `ok`, their cache bytes per
-device equal to the reference's spec rules over its eval_shape state.
+device equal to the reference's spec rules over its eval_shape state,
+their step traced sharded with its collectives and HBM bytes.
 """
 import math
 
@@ -129,6 +130,12 @@ def test_long_500k_decode_cell_comes_back_ok(arch):
     assert rec["status"] == "ok", rec
     assert rec["memory"]["cache"] == _ref_cache_bytes(arch, "long_500k")
     assert rec["memory"]["cache"] > 0
-    # the family takes no mesh in the port: no sharded trace, said why
-    assert rec["analysis"] is None and rec["collectives"] is None
-    assert "takes no mesh" in rec["notes"]["collectives"]
+    # traced sharded as every family is: the model-parallel bodies'
+    # collectives, the per-device peak over the cache's shard
+    a = rec["analysis"]
+    assert rec["collectives"] == a["collectives"]
+    assert a["collectives"]["all-reduce"]["count"] > 0
+    assert isinstance(a["bytes"], int) and a["bytes"] > rec["memory"]["cache"]
+    assert rec["memory"]["temp_size_in_bytes"] == (
+        rec["trace_peak_bytes"] - rec["memory"]["argument_size_in_bytes"])
+    assert rec["trace_peak_bytes"] > rec["memory"]["argument_size_in_bytes"]

@@ -208,4 +208,7 @@ def test_collectives_are_three_all_reduces_of_the_rows(runs, ranks):
                 return torch.autograd.grad(sharded_cross_entropy(lg, lb),
                                            [lg])
         _, traced = comm_analysis.analyze(call)
-    assert traced == counted[0]
+    # HBM bytes count device memory: the gloo ranks' tensors are in host
+    # memory, the fake group's on the meta device
+    assert counted[0]["bytes"] == 0 < traced["bytes"]
+    assert dict(counted[0], bytes=traced["bytes"]) == traced
